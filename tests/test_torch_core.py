@@ -154,3 +154,29 @@ def test_shade_vertex_lit_point_lights_close():
     T = torch.from_numpy
     out = sm.shade_vertex_lit(T(n), T(base), T(kd), lt, world_pos=T(pos))
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+
+
+def test_lambert_and_flat_face_close():
+    from xr.core.types import Lights as RefLights
+    from xr_torch.core.types import Lights
+
+    rng = np.random.default_rng(5)
+    n = rng.standard_normal((200, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    ld = np.asarray((-0.5, -0.7, -0.5), np.float32)
+    T = torch.from_numpy
+    lam = sm.lambert(T(n), T(ld)).numpy()
+    np.testing.assert_allclose(lam, rsm.lambert(n, ld), rtol=0, atol=1e-6)
+    assert (lam == 0).any() and (lam > 0).any()
+    kw = dict(dir_dirs=[tuple(ld)], dir_colors=[(1.0, 1.0, 1.0)], ambient=(0.15, 0.15, 0.15),
+              pt_pos=[(0.5, 2.0, 1.0)], pt_colors=[(0.3, 0.2, 0.1)])
+    base = rng.uniform(0, 1, (200, 3)).astype(np.float32)
+    kd = rng.uniform(0, 1, 200).astype(np.float32)
+    cen = rng.standard_normal((200, 3)).astype(np.float32)
+    lt = Lights.make(**kw)
+    lt = Lights(**{f: T(getattr(lt, f)) for f in
+                   ("dir_dirs", "dir_colors", "pt_pos", "pt_colors", "ambient")})
+    for c in (None, cen):
+        ref = rsm.shade_flat_face(n, base, kd, RefLights.make(**kw), np, centroid=c)
+        out = sm.shade_flat_face(T(n), T(base), T(kd), lt, centroid=None if c is None else T(c))
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)

@@ -1,8 +1,8 @@
-"""The port's whole frame on the CPU (config3 at golden size): it matches the
-checked-in golden by the golden rule (no pixel more than 1 LSB off,
-coverage within 1e-6 of the manifest), and the reference Renderer on the
-same scene by the device-vs-oracle rule (coverage exact, depth within
-1e-6, color within 1 LSB), with equal stats."""
+"""The port's whole frame on the CPU (config1, config2 and config3 at golden
+size): it matches the checked-in golden by the golden rule (no pixel more
+than 1 LSB off, coverage within 1e-6 of the manifest), and the reference
+Renderer on the same scene by the device-vs-oracle rule (coverage exact,
+depth within 1e-6, color within 1 LSB), with equal stats."""
 
 import json
 import os
@@ -24,27 +24,36 @@ torch.set_num_threads(1)
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
 
-def _manifest():
+PORT = {
+    "config1": presets.config1_cube,
+    "config2": presets.config2_icospheres,
+    "config3": lambda: presets.config3_terrain(48, 48),
+}
+REF = {
+    "config1": ref_presets.config1_cube,
+    "config2": ref_presets.config2_icospheres,
+    "config3": lambda: ref_presets.config3_terrain(48, 48),
+}
+
+
+def _manifest(name="config3"):
     with open(os.path.join(GOLDEN_DIR, "manifest.json")) as f:
-        return json.load(f)["config3"]
+        return json.load(f)[name]
 
 
-def _port_frame(t, m):
-    p = presets.small_preset(presets.config3_terrain(48, 48), m["width"], m["height"],
-                             **m["overrides"])
+def _port_frame(t, m, name="config3", **over):
+    p = presets.small_preset(PORT[name](), m["width"], m["height"], **{**m["overrides"], **over})
     cam, mm = p.animate(t)
     scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), "cpu")
     r = Renderer(scene, p.config, "cpu")
     kernels.reset_launches()
     frame = r.readback(r.step(scene, cam))
-    assert kernels.launches["vis_stream"] == 0
+    assert not any(kernels.launches.values())  # CPU tensors: the plain versions
     return frame
 
 
-def test_port_frame_matches_golden():
-    m = _manifest()
-    frame = _port_frame(m["t"], m)
-    golden = read_png(os.path.join(GOLDEN_DIR, "config3.png"))
+def _check_golden(frame, name, m):
+    golden = read_png(os.path.join(GOLDEN_DIR, f"{name}.png"))
     assert frame.color.shape == golden.shape and frame.color.dtype == np.uint8
     diff = np.abs(frame.color.astype(int) - golden.astype(int))
     assert (diff.max(axis=-1) > 1).sum() == 0, f"max diff {diff.max()}"
@@ -52,22 +61,63 @@ def test_port_frame_matches_golden():
     assert abs(cov - m["coverage"]) < 1e-6
 
 
-@pytest.mark.parametrize("t", [0.3, 1.7])
-def test_port_frame_matches_reference_renderer(t):
+def test_port_frame_matches_golden():
     m = _manifest()
-    p = ref_presets.small_preset(ref_presets.config3_terrain(48, 48), m["width"], m["height"],
-                                 **m["overrides"])
+    _check_golden(_port_frame(m["t"], m), "config3", m)
+
+
+@pytest.mark.parametrize("name", ["config1", "config2"])
+def test_flat_and_gouraud_frames_match_golden(name):
+    m = _manifest(name)
+    _check_golden(_port_frame(m["t"], m, name), name, m)
+
+
+def _check_against_reference(name, t):
+    m = _manifest(name)
+    p = ref_presets.small_preset(REF[name](), m["width"], m["height"], **m["overrides"])
     cam, mm = p.animate(t, np)
     scene = p.scene.replace(model_matrices=mm)
     r = RefRenderer(scene, p.config)
     ref = r.readback(r.step(scene, cam))
-    frame = _port_frame(t, m)
+    frame = _port_frame(t, m, name)
     assert ((frame.depth == 1.0) == (ref.depth == 1.0)).all(), "coverage mismatch"
     np.testing.assert_allclose(frame.depth, ref.depth, rtol=0, atol=1e-6)
     assert np.abs(frame.color.astype(int) - ref.color.astype(int)).max() <= 1
     assert set(frame.stats) == set(ref.stats)
     for k in ref.stats:
         assert int(frame.stats[k]) == int(ref.stats[k]), k
+
+
+@pytest.mark.parametrize("t", [0.3, 1.7])
+def test_port_frame_matches_reference_renderer(t):
+    _check_against_reference("config3", t)
+
+
+@pytest.mark.parametrize("name", ["config1", "config2"])
+def test_flat_and_gouraud_frames_match_reference_renderer(name):
+    _check_against_reference(name, 1.1)
+
+
+def test_config2_backends_render_the_same_frame():
+    """auto (the stream kernel), jnp and pallas_smem give one frame; at
+    golden size pallas_smem streams by the SMEM budget rule, so with a
+    4224-entry cap (inside the budget, above the fullest tile's 4127
+    entries) the list kernel's plain version runs too."""
+    m = _manifest("config2")
+    want = _port_frame(m["t"], m, "config2")
+    for over in ({"backend": "jnp"}, {"backend": "pallas_smem"},
+                 {"backend": "pallas_smem", "bin_capacity": 4224}):
+        got = _port_frame(m["t"], m, "config2", **over)
+        assert (got.color == want.color).all() and (got.depth == want.depth).all(), over
+        for k in want.stats:
+            assert int(got.stats[k]) == int(want.stats[k]), (over, k)
+
+
+def test_config1_brute_equals_binned():
+    m = _manifest("config1")
+    want = _port_frame(m["t"], m, "config1")
+    got = _port_frame(m["t"], m, "config1", raster_path="binned")
+    assert (got.color == want.color).all() and (got.depth == want.depth).all()
 
 
 def _small(**over):
@@ -112,9 +162,13 @@ def test_layout_axes_render_the_same_frame(axis, value):
 
 
 @pytest.mark.parametrize("over", [
-    {"raster_path": "brute"}, {"backend": "jnp"}, {"backend": "pallas_smem"},
     {"bin_zorder": True}, {"bin_pairs": 2}, {"z_earlyout": True},
-    {"blend": True}, {"mode": 0}, {"shadow_map_size": 64}, {"num_shards": 2},
+    {"blend": True}, {"mode": 3}, {"shadow_map_size": 64}, {"num_shards": 2},
+    {"debug_checks": True},
+    # the list kernel's prep refuses the occlusion early-out too
+    {"backend": "pallas_smem", "z_earlyout": True},
+    # the identity record layout: capacity >= T + clip_budget * 7
+    {"clip_expand": 8.0},
 ], ids=lambda d: next(iter(d)))
 def test_unported_options_raise(over):
     p, cam, scene = _small(**over)

@@ -1,5 +1,6 @@
 """The port's geometry stage against the reference's (XLA on the CPU) on
-config3 at golden size, given the same numpy view/proj: integer fields,
+config3 at golden size, and on config1 and config2 in flat (attr_width 0)
+and Gouraud (attr_width 3) mode, given the same numpy view/proj: integer fields,
 validity, counts and payload ids exact; z, 1/w and attributes within 1e-6
 (the reference's numpy and XLA stages differ by up to 2.4e-7 there). In
 the near-plane view 1/w and the attributes reach ~10, where one f32 ulp is
@@ -24,7 +25,7 @@ torch.set_num_threads(1)
 
 W, H = 192, 108
 EXACT = ("xs", "ys", "valid", "count", "overflow", "src_id", "mat_id")
-CLOSE = ("z", "inv_w", "attr_w")
+CLOSE = ("z", "inv_w", "attr_w", "face_rgb")
 
 
 @pytest.fixture(scope="module")
@@ -79,3 +80,30 @@ def test_geometry_matches_reference(setup, t):
         assert int(stats["fan_records"]) > 0
     else:
         assert int(tri.count) > 1000 and int(tri.overflow) == 0
+
+
+@pytest.mark.parametrize("name,mode", [
+    ("config1_cube", 0), ("config1_cube", 1), ("config2_icospheres", 0), ("config2_icospheres", 1),
+], ids=["config1-flat", "config1-gouraud", "config2-flat", "config2-gouraud"])
+def test_flat_and_gouraud_geometry_match_reference(name, mode):
+    """Flat carries (.., 3, 0) attributes through clipping and snapping;
+    config1 has no host vert_mat, so Gouraud takes the device min."""
+    ref = ref_presets.small_preset(getattr(ref_presets, name)(), W, H, mode=mode)
+    port = presets.small_preset(getattr(presets, name)(), W, H, mode=mode)
+    cam, mm = ref.animate(0.7, np)
+    view, proj = rm3.camera_matrices(cam, W / H, np)
+    rtri = ref_geometry(ref.scene.replace(model_matrices=mm), jnp.asarray(view),
+                        jnp.asarray(proj), ref.config, xp=jnp)
+    scene = convert.scene_to_torch(port.scene.replace(model_matrices=mm), "cpu")
+    tri = geometry(scene, torch.from_numpy(view), torch.from_numpy(proj), port.config)
+    assert tri.attr_w.shape[-1] == 3 * mode
+    for f in EXACT:
+        a, b = getattr(tri, f).numpy(), np.asarray(getattr(rtri, f))
+        assert a.shape == b.shape and (a == b).all(), f
+    for f in CLOSE:
+        a, b = getattr(tri, f).numpy(), np.asarray(getattr(rtri, f))
+        assert a.shape == b.shape, f
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6, err_msg=f)
+    assert int(tri.count) > 0 and int(tri.overflow) == 0
+    if mode == 0:
+        assert float(np.abs(tri.face_rgb.numpy()).max()) > 0.1

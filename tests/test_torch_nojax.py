@@ -1,6 +1,6 @@
 """The port stands alone: with jax, flax and xr made unimportable, every
-xr_torch module imports and a small config3 frame renders on the CPU
-without launching a kernel."""
+xr_torch module imports and small config1, config2 and config3 frames
+render on the CPU without launching a kernel."""
 
 import os
 import subprocess
@@ -20,15 +20,18 @@ import xr_torch
 for m in pkgutil.walk_packages(xr_torch.__path__, "xr_torch."):
     importlib.import_module(m.name)
 from xr_torch import Renderer, convert, kernels
-from xr_torch.scene.presets import config3_terrain, small_preset
-p = small_preset(config3_terrain(48, 48), 64, 48)
-cam, mm = p.animate(0.3)
-scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), "cpu")
-r = Renderer(scene, p.config, "cpu")
-f = r.readback(r.step(scene, cam))
-assert f.color.shape == (48, 64, 3) and f.color.dtype == np.uint8
-assert np.isfinite(f.depth).all() and (f.depth < 1.0).mean() > 0.5
-assert kernels.launches["vis_stream"] == 0
+from xr_torch.scene.presets import config1_cube, config2_icospheres, config3_terrain, small_preset
+for preset, cov in ((config3_terrain(48, 48), 0.5), (config1_cube(), 0.1),
+                    (config2_icospheres(), 0.1)):
+    p = small_preset(preset, 64, 48)
+    cam, mm = p.animate(0.3)
+    scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), "cpu")
+    r = Renderer(scene, p.config, "cpu")
+    f = r.readback(r.step(scene, cam))
+    assert f.color.shape == (48, 64, 3) and f.color.dtype == np.uint8
+    assert np.isfinite(f.depth).all() and (f.depth < 1.0).mean() > cov, p.name
+    assert f.color.max() > 0
+assert not any(kernels.launches.values())
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "xr.")) for k, v in sys.modules.items() if v is not None)
 print("OK")
 """

@@ -1,6 +1,7 @@
-"""The port's host-side scene functions and config make exactly the
-reference's arrays and configs, and convert carries a reference scene over
-unchanged."""
+"""The port's host-side scene functions and configs make exactly the
+reference's arrays and configs (terrain, cube, icosphere, merged and
+transformed meshes, the config1-3 presets), and convert carries a reference
+scene over unchanged."""
 
 import dataclasses
 
@@ -35,6 +36,55 @@ def test_terrain_bit_identical(n):
     for f in MESH_FIELDS + ("vert_mat",):
         _same(getattr(port, f), getattr(ref, f))
     assert port.num_triangles == 2 * n * n
+
+
+def _same_mesh(port, ref):
+    for f in MESH_FIELDS:
+        _same(getattr(port, f), getattr(ref, f))
+    if ref.vert_mat is None:
+        assert port.vert_mat is None
+    else:
+        _same(port.vert_mat, ref.vert_mat)
+
+
+@pytest.mark.parametrize("build", [
+    lambda proc: proc.cube(1.2, mat=1),
+    lambda proc: proc.icosphere(2, radius=0.55, mat=3),
+    lambda proc: proc.merge_meshes([proc.cube(), proc.icosphere(1, mat=2)], transform_ids=[0, 1]),
+    lambda proc: proc.transformed(proc.icosphere(2), np.array(
+        [[0.0, 0.0, 2.0, 1.5], [0.0, 2.0, 0.0, -0.25], [-2.0, 0.0, 0.0, 3.0], [0, 0, 0, 1]],
+        np.float32)),
+], ids=["cube", "icosphere", "merge_meshes", "transformed"])
+def test_meshes_bit_identical(build):
+    _same_mesh(build(procedural), build(ref_proc))
+
+
+@pytest.mark.parametrize("name", ["config1_cube", "config2_icospheres"])
+def test_flat_and_gouraud_presets_bit_identical(name):
+    ref, port = getattr(ref_presets, name)(), getattr(presets, name)()
+    assert port.name == ref.name
+    _same_mesh(port.scene.mesh, ref.scene.mesh)
+    for f in ("base_color", "ka", "kd", "ks", "shininess", "tex_id", "alpha"):
+        _same(getattr(port.scene.materials, f), getattr(ref.scene.materials, f))
+    for f in ("dir_dirs", "dir_colors", "pt_pos", "pt_colors", "ambient"):
+        _same(getattr(port.scene.lights, f), getattr(ref.scene.lights, f))
+    _same(port.scene.model_matrices, ref.scene.model_matrices)
+    assert port.scene.textures is None and ref.scene.textures is None
+    for p, r in ((port, ref), (presets.small_preset(port, 192, 108, bin_capacity=8192),
+                               ref_presets.small_preset(ref, 192, 108, bin_capacity=8192))):
+        assert dataclasses.asdict(p.config) == dataclasses.asdict(r.config)
+        assert convert.config_from(r.config) == p.config
+    for t in (0.0, 0.7, 1.7):
+        rc, rm = ref.animate(t, np)
+        pc, pm = port.animate(t)
+        for f in ("eye", "target", "up", "fov_y", "near", "far"):
+            _same(getattr(pc, f), np.asarray(getattr(rc, f)))
+        _same(pm, np.asarray(rm))
+
+
+def test_preset_registry_names_reference_presets():
+    for key, fn in presets.ALL_PRESETS.items():
+        assert ref_presets.ALL_PRESETS[key].__name__ == fn.__name__
 
 
 def test_pyramid_bit_identical():

@@ -105,3 +105,17 @@ def test_stream_blocks_matches_reference(ref_tri):
         cfg = dataclasses.replace(base, **over)
         assert stream.stream_blocks(convert.config_from(cfg), rtri.capacity, rtri.num_src) == \
             ref_stream.stream_blocks(cfg, rtri.capacity, rtri.num_src)
+
+
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    """A tile_w other than 128 raises before anything is built; a CPU
+    tensor never reaches a launch."""
+    z = torch.zeros((4,), dtype=torch.int32)
+    shape = dict(height=64, width=128, tile_h=64, ntx=1, subpixel=4, depth_test=True)
+    with pytest.raises(ValueError, match="tile_w"):
+        kernels.vis_stream(z, z, z, z, z, z, z[:1], tile_w=64, **shape)
+    with pytest.raises(ValueError, match="tile_w"):
+        kernels.vis_lists(z, z[None], z, z, z[:1], tile_w=256, **shape)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels._check("rec", z, torch.int32)
+    assert not any(kernels.launches.values())

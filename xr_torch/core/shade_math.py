@@ -1,5 +1,5 @@
-"""Shading formulas of the port's slice (port of ``xr/core/shade_math.py``):
-vertex lighting, the analytic mip LOD, trilinear sampling from the packed
+"""Shading formulas of the port (port of ``xr/core/shade_math.py``):
+Lambert, vertex and flat-face lighting, the analytic mip LOD, trilinear sampling from the packed
 quad pyramid (wide fetch, table mip math, repeat addressing) and the u8
 resolve. Float32 throughout; the reductions are written out so their order
 is the reference's.
@@ -12,6 +12,12 @@ import math
 import torch
 
 F32 = torch.float32
+
+
+def lambert(normal, light_dir):
+    """Diffuse factor for a directional light; light_dir is the direction
+    the light travels, so shading uses -light_dir."""
+    return torch.clamp_min(-(normal * light_dir).sum(-1), 0.0)
 
 
 def shade_vertex_lit(normal, base_color, kd, lights, world_pos=None):
@@ -35,6 +41,13 @@ def shade_vertex_lit(normal, base_color, kd, lights, world_pos=None):
                 kd[:, None] * base_color * (ndl * att)[:, None]
             ) * lights.pt_colors[i]
     return col.to(F32)
+
+
+def shade_flat_face(face_normal, base_color, kd, lights, centroid=None):
+    """Per-face flat color: the vertex lighting model evaluated once per
+    triangle with the geometric normal (point lights, when present, at the
+    face centroid)."""
+    return shade_vertex_lit(face_normal, base_color, kd, lights, world_pos=centroid)
 
 
 def lod_from_derivs(dudx, dvdx, dudy, dvdy, base_size):

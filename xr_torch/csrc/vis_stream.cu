@@ -2,190 +2,69 @@
 //
 // Replaces the Pallas TPU kernel xr/raster/pallas_stream.py `_vis_kernel`
 // together with the record loop it shares, xr/raster/pallas_smem.py
-// `_raster_scalar_records` (with its x_test and depth_test options).
+// `_raster_scalar_records` (fold_records.cuh).
 //
 // For each screen tile: clear (z, id) to (+inf, BG) — or id -1 in painter's
-// order — fold the global large bucket behind a whole-record tile bbox
-// reject, then fold the tile's sorted bin segment
-// sid[starts[t] : starts[t] + run_counts[t]]. Coverage is exact int32
-// plane-form edges e_k = a_k*px + b_k*py + c_k (computed in uint32 so the
-// wraparound the records rely on is defined), accepted iff e_k >= o_k;
-// depth zf = ((e0*inv)*z0 + (e1*inv)*z1) + (e2*inv)*z2 with every product
-// and sum rounded on its own (no FMA: built with -fmad=false and written
-// with the _rn intrinsics), kept within [0, 1]; the winner is the strict
-// (z, id) lexicographic minimum, or the highest id without a depth test.
-// Tiles that the stream capacity did not reach are written as background.
+// order — fold the global large bucket behind a whole-record bbox reject,
+// then fold the tile's sorted bin segment
+// sid[starts[t] : starts[t] + run_counts[t]]. Tiles that the stream
+// capacity did not reach are written as background.
 //
 // What bounds it on the H100: per record, each thread does a few integer
 // multiply-adds per pixel it owns; the records are small (72 bytes) and
-// read once per tile, so the kernel is bound by instruction throughput,
-// not by memory.
-// The design keeps the framebuffer tile in registers (16 pixels a thread,
-// one CTA of 256 threads per 32x128 tile), stages records through shared
-// memory in chunks (one coalesced load per record field, broadcast reads
-// in the loop), rejects a pixel on the record's bbox before the edge math,
-// and writes each tile once. Records are read by id straight from the
-// (C, 18) table: the TPU's block layout and scalar prefetch have no
-// counterpart here.
+// read once per slab, so the kernel is bound by instruction throughput,
+// not by memory. The design keeps the framebuffer slab in registers, stages
+// records through shared memory and writes each pixel once. The TPU's block
+// layout and scalar prefetch have no counterpart here: the torch prep
+// computes the block budget's outcome (run_counts, tile_ran).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fold_records.cuh"
 
 namespace {
 
-constexpr int kFields = 18;    // record width (xr_torch/raster/records.py)
-constexpr int kThreads = 256;  // threads per CTA
-constexpr int kMaxPpt = 16;    // pixels per thread: tile_h*tile_w <= 4096
-constexpr int kChunk = 128;    // records staged in shared memory per pass
-constexpr int kBg = 0x7fffffff;
-constexpr int kB16 = 32768;
-constexpr int kNoPixel = -(1 << 30);  // fails every bbox test
-
-struct Tile {
-  int px0, px1, py0, py1;  // fixed-point centers of the tile's corner pixels
-};
-
-// The record loop: fold n records whose ids are ids[0..n) into the
-// thread's pixels. x_test: whole-record tile bbox reject first (records of
-// the large bucket are not binned to this tile).
-__device__ __forceinline__ void fold_records(
-    const int* __restrict__ ids, int n, bool x_test,
-    const int* __restrict__ rec, int (*s_rec)[kFields], const Tile& tile,
-    const int (&pxs)[kMaxPpt], const int (&pys)[kMaxPpt],
-    float (&zb)[kMaxPpt], int (&tb)[kMaxPpt], bool depth_test) {
-  for (int base = 0; base < n; base += kChunk) {
-    const int m = min(kChunk, n - base);
-    __syncthreads();  // the previous chunk is consumed
-    for (int e = threadIdx.x; e < m * kFields; e += kThreads) {
-      const int r = e / kFields;
-      const int f = e - r * kFields;
-      s_rec[r][f] = rec[(size_t)ids[base + r] * kFields + f];
-    }
-    __syncthreads();
-    for (int r = 0; r < m; ++r) {
-      const int* R = s_rec[r];
-      const int byp = R[16], bxp = R[17];
-      const int by0 = (byp & 0xFFFF) - kB16;
-      const int by1 = ((byp >> 16) & 0xFFFF) - kB16;
-      const int bx0 = (bxp & 0xFFFF) - kB16;
-      const int bx1 = ((bxp >> 16) & 0xFFFF) - kB16;
-      if (x_test && !(bx1 >= tile.px0 && bx0 <= tile.px1 &&
-                      by1 >= tile.py0 && by0 <= tile.py1)) {
-        continue;  // uniform across the CTA
-      }
-      const unsigned a0 = R[0], b0 = R[1], c0 = R[2];
-      const unsigned a1 = R[3], b1 = R[4], c1 = R[5];
-      const unsigned a2 = R[6], b2 = R[7], c2 = R[8];
-      const float z0 = __int_as_float(R[9]);
-      const float z1 = __int_as_float(R[10]);
-      const float z2 = __int_as_float(R[11]);
-      const float inv = __int_as_float(R[12]);
-      const int id = R[14];
-      const int of = R[15];
-      const int o0 = of & 1, o1 = (of >> 1) & 1, o2 = (of >> 2) & 1;
-#pragma unroll
-      for (int k = 0; k < kMaxPpt; ++k) {
-        const int px = pxs[k], py = pys[k];
-        if (px < bx0 || px > bx1 || py < by0 || py > by1) continue;
-        const int e0 = (int)(a0 * (unsigned)px + b0 * (unsigned)py + c0);
-        const int e1 = (int)(a1 * (unsigned)px + b1 * (unsigned)py + c1);
-        const int e2 = (int)(a2 * (unsigned)px + b2 * (unsigned)py + c2);
-        if (e0 < o0 || e1 < o1 || e2 < o2) continue;
-        const float w0 = __fmul_rn(__fmul_rn(__int2float_rn(e0), inv), z0);
-        const float w1 = __fmul_rn(__fmul_rn(__int2float_rn(e1), inv), z1);
-        const float w2 = __fmul_rn(__fmul_rn(__int2float_rn(e2), inv), z2);
-        const float zf = __fadd_rn(__fadd_rn(w0, w1), w2);
-        if (!(zf >= 0.0f && zf <= 1.0f)) continue;
-        const bool better = depth_test
-            ? (zf < zb[k] || (zf == zb[k] && id < tb[k]))
-            : (id > tb[k]);
-        if (better) {
-          zb[k] = zf;
-          tb[k] = id;
-        }
-      }
-    }
-  }
-}
+using namespace xr;
 
 __global__ void __launch_bounds__(kThreads) vis_stream_kernel(
     const int* __restrict__ rec, const int* __restrict__ sid,
     const int* __restrict__ starts, const int* __restrict__ run_counts,
     const int* __restrict__ tile_ran, const int* __restrict__ large_ids,
     const int* __restrict__ large_count, int* __restrict__ tid_out,
-    float* __restrict__ z_out, int height, int width, int tile_h, int tile_w,
-    int ntx, int sub, int depth_test) {
+    float* __restrict__ z_out, int height, int width, int tile_h, int ntx,
+    int sub, int depth_test) {
   __shared__ int s_rec[kChunk][kFields];
   const int t = blockIdx.x;
-  const int row0 = (t / ntx) * tile_h;
-  const int col0 = (t % ntx) * tile_w;
-  const int npix = tile_h * tile_w;
-  const int half = sub >> 1;
-
-  int pxs[kMaxPpt], pys[kMaxPpt], tb[kMaxPpt];
-  float zb[kMaxPpt];
-#pragma unroll
-  for (int k = 0; k < kMaxPpt; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    const int r = p / tile_w;
-    const int c = p - r * tile_w;
-    pxs[k] = p < npix ? (col0 + c) * sub + half : kNoPixel;
-    pys[k] = p < npix ? (row0 + r) * sub + half : kNoPixel;
-    zb[k] = __int_as_float(0x7f800000);  // +inf
-    tb[k] = depth_test ? kBg : -1;
-  }
-
+  Slab s;
+  slab_init(s, tile_h, ntx, sub, depth_test != 0);
   const bool ran = tile_ran[t] != 0;
   if (ran) {  // uniform across the CTA
-    Tile tile;
-    tile.px0 = col0 * sub + half;
-    tile.px1 = (col0 + tile_w - 1) * sub + half;
-    tile.py0 = row0 * sub + half;
-    tile.py1 = (row0 + tile_h - 1) * sub + half;
-    fold_records(large_ids, *large_count, true, rec, s_rec, tile, pxs, pys,
-                 zb, tb, depth_test != 0);
-    fold_records(sid + starts[t], run_counts[t], false, rec, s_rec, tile, pxs,
-                 pys, zb, tb, depth_test != 0);
-  }
-
-#pragma unroll
-  for (int k = 0; k < kMaxPpt; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    const int r = p / tile_w;
-    const int row = row0 + r;
-    const int col = col0 + (p - r * tile_w);
-    if (p >= npix || row >= height || col >= width) continue;
-    int id = tb[k];
-    float z = zb[k];
-    if (!depth_test && id < 0) id = kBg;  // painter's order: -1 is "none"
-    if (id == kBg || !ran) {
-      id = kBg;
-      z = __int_as_float(0x7f800000);
+    fold_records<true>(large_ids, *large_count, rec, s_rec, s, depth_test != 0);
+    if (gridDim.y > 1) {  // a slab skips the tile's records outside it
+      fold_records<true>(sid + starts[t], run_counts[t], rec, s_rec, s, depth_test != 0);
+    } else {
+      fold_records<false>(sid + starts[t], run_counts[t], rec, s_rec, s, depth_test != 0);
     }
-    tid_out[(size_t)row * width + col] = id;
-    z_out[(size_t)row * width + col] = z;
   }
+  slab_store(s, ran, depth_test != 0, height, width, tid_out, z_out);
 }
 
 }  // namespace
-
-extern "C" int xr_vis_stream_max_tile_pixels() { return kThreads * kMaxPpt; }
 
 extern "C" const char* xr_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// One launch on `stream`; allocates nothing. Returns cudaGetLastError().
+// One launch on `stream`; allocates nothing. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a tile shape the kernel does not take (tile_w
+// other than 128).
 extern "C" int xr_vis_stream(
     const int* rec, const int* sid, const int* starts, const int* run_counts,
     const int* tile_ran, const int* large_ids, const int* large_count,
     int* tid_out, float* z_out, int ntiles, int height, int width, int tile_h,
     int tile_w, int ntx, int sub, int depth_test, void* stream) {
-  if (tile_h * tile_w > kThreads * kMaxPpt || ntiles <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  vis_stream_kernel<<<ntiles, kThreads, 0, (cudaStream_t)stream>>>(
+  const dim3 grid = slab_grid(ntiles, tile_h, tile_w);
+  if (grid.x == 0) return (int)cudaErrorInvalidValue;
+  vis_stream_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       rec, sid, starts, run_counts, tile_ran, large_ids, large_count, tid_out,
-      z_out, height, width, tile_h, tile_w, ntx, sub, depth_test);
+      z_out, height, width, tile_h, ntx, sub, depth_test);
   return (int)cudaGetLastError();
 }

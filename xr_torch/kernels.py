@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the port: build, load, launch, count.
 
-The sources under ``xr_torch/csrc/`` are compiled at first use with nvcc
-into a shared library with a plain C interface (keyed by a hash of the
-sources and flags, under ``build/xr_torch/`` at the repository root, which
+The sources under ``xr_torch/csrc/`` are compiled at first use with nvcc,
+one process per source started together, and linked into one shared
+library with a plain C interface (keyed by a hash of the sources, headers
+and flags, under ``build/xr_torch/`` at the repository root, which
 ``.gitignore`` lists) and loaded with ctypes. A failed build or a nonzero
 launch status raises: there is no fallback on a CUDA tensor.
 
@@ -24,15 +25,15 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = [CSRC / "vis_stream.cu"]
+SOURCES = [CSRC / "vis_stream.cu", CSRC / "vis_lists.cu"]
+HEADERS = [CSRC / "fold_records.cuh"]
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "xr_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
-launches = {"vis_stream": 0}
+TILE_W = 128  # tile width the visibility kernels take (csrc/fold_records.cuh)
+
+launches = {"vis_stream": 0, "vis_lists": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -53,28 +54,40 @@ def _nvcc() -> str:
     return path
 
 
+def _run(cmds, verbose: bool) -> None:
+    """Run the commands in parallel; raise with the output of a failure."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)) for c in cmds]
+    outs = [(c, p.communicate()[0], p.returncode) for c, p in procs]
+    for c, out, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(c)}\n{out}")
+        if verbose:
+            print(out)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernel library if it is not built yet; returns its path."""
     global build_seconds
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libxr_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, SOURCES)]
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    _run([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(o), str(src)]
+          for src, o in zip(SOURCES, objs)], verbose)
+    _run([[nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]], verbose)
     build_seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
-    if verbose:
-        print(res.stdout + res.stderr)
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)
     return out
 
@@ -88,8 +101,8 @@ def library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.xr_vis_stream.argtypes = [p] * 9 + [i] * 8 + [p]
             lib.xr_vis_stream.restype = i
-            lib.xr_vis_stream_max_tile_pixels.argtypes = []
-            lib.xr_vis_stream_max_tile_pixels.restype = i
+            lib.xr_vis_lists.argtypes = [p] * 7 + [i] * 9 + [p]
+            lib.xr_vis_lists.restype = i
             lib.xr_cuda_error_string.argtypes = [i]
             lib.xr_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -109,13 +122,29 @@ def _check(name, t, dtype, shape=None, device=None):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def _check_tile(tile_w: int) -> None:
+    if tile_w != TILE_W:
+        raise ValueError(f"tile_w {tile_w}: the visibility kernels take tile_w {TILE_W}")
+
+
+def _launch(name, fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {library().xr_cuda_error_string(err).decode()}"
+        )
+    launches[name] += 1
+
+
 def vis_stream(rec, sid, starts, run_counts, tile_ran, large_ids, large_count,
                *, height, width, tile_h, tile_w, ntx, subpixel, depth_test):
     """Launch the streaming visibility kernel (see csrc/vis_stream.cu) on the
     current stream. Returns (tid (H,W) int32, z (H,W) f32, +inf background).
 
     rec (C,18) i32; sid (S,) i32; starts, run_counts, tile_ran (ntiles,) i32;
-    large_ids (L,) i32; large_count (1,) i32 — all on one CUDA device."""
+    large_ids (L,) i32; large_count (1,) i32 — all on one CUDA device.
+    Tiles are tile_w = 128 wide and of any height."""
+    _check_tile(tile_w)
     lib = library()
     dev = rec.device
     ntiles = starts.shape[0]
@@ -125,23 +154,48 @@ def vis_stream(rec, sid, starts, run_counts, tile_ran, large_ids, large_count,
         _check(n, t, torch.int32, (ntiles,), dev)
     _check("large_ids", large_ids, torch.int32, None, dev)
     _check("large_count", large_count, torch.int32, (1,), dev)
-    if tile_h * tile_w > lib.xr_vis_stream_max_tile_pixels():
-        raise ValueError(f"tile {tile_h}x{tile_w} exceeds the kernel's tile size")
     if ntiles != ntx * (-(-height // tile_h)):
         raise ValueError("starts must have one entry per tile")
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
     z = torch.empty((height, width), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.xr_vis_stream(
+    _launch(
+        "vis_stream", lib.xr_vis_stream,
         rec.data_ptr(), sid.data_ptr(), starts.data_ptr(), run_counts.data_ptr(),
         tile_ran.data_ptr(), large_ids.data_ptr(), large_count.data_ptr(),
         tid.data_ptr(), z.data_ptr(),
         ntiles, height, width, tile_h, tile_w, ntx, subpixel, int(bool(depth_test)),
-        stream,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(
-            f"vis_stream launch failed: {lib.xr_cuda_error_string(err).decode()}"
-        )
-    launches["vis_stream"] += 1
+    return tid, z
+
+
+def vis_lists(rec, lists, counts, large_ids, large_count,
+              *, height, width, tile_h, tile_w, ntx, subpixel, depth_test):
+    """Launch the per-tile list visibility kernel (see csrc/vis_lists.cu) on
+    the current stream. Returns (tid (H,W) int32, z (H,W) f32, +inf
+    background).
+
+    rec (C,18) i32; lists (ntiles, cap) i32; counts (ntiles,) i32 (<= cap);
+    large_ids (L,) i32; large_count (1,) i32 — all on one CUDA device.
+    Tiles are tile_w = 128 wide and of any height."""
+    _check_tile(tile_w)
+    lib = library()
+    dev = rec.device
+    ntiles, cap = lists.shape
+    _check("rec", rec, torch.int32, (rec.shape[0], 18), dev)
+    _check("lists", lists, torch.int32, None, dev)
+    _check("counts", counts, torch.int32, (ntiles,), dev)
+    _check("large_ids", large_ids, torch.int32, None, dev)
+    _check("large_count", large_count, torch.int32, (1,), dev)
+    if ntiles != ntx * (-(-height // tile_h)):
+        raise ValueError("lists must have one row per tile")
+    tid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    _launch(
+        "vis_lists", lib.xr_vis_lists,
+        rec.data_ptr(), lists.data_ptr(), counts.data_ptr(), large_ids.data_ptr(),
+        large_count.data_ptr(), tid.data_ptr(), z.data_ptr(),
+        ntiles, cap, height, width, tile_h, tile_w, ntx, subpixel, int(bool(depth_test)),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
     return tid, z

@@ -23,8 +23,9 @@ from xr_torch.core import fixedpoint as fp
 from xr_torch.core import math3d as m3
 from xr_torch.core import shade_math as sm
 from xr_torch.core.types import (
-    MODE_DEPTH_ONLY,
-    MODE_NAMES,
+    MODE_FLAT,
+    MODE_GOURAUD,
+    MODE_PHONG,
     MODE_TEXTURED,
     RenderConfig,
     Scene,
@@ -155,14 +156,25 @@ def clip_triangles(pos: torch.Tensor, attr: torch.Tensor, guard: float):
     return poly[:, :, :4], poly[:, :, 4:], cnt
 
 
+def _vert_mat(mesh) -> torch.Tensor:
+    """Per-vertex material id: Mesh.vert_mat when the host attached it, else
+    the lowest material id among the triangles using the vertex (0 for
+    unused vertices) — an order-independent min."""
+    if mesh.vert_mat is not None:
+        return mesh.vert_mat
+    big = 2**30
+    out = torch.full((mesh.num_vertices,), big, dtype=I32, device=mesh.indices.device)
+    val = mesh.material_id.repeat_interleave(3)
+    out = out.scatter_reduce(0, mesh.indices.reshape(-1).long(), val, "amin")
+    return torch.where(out == big, 0, out)
+
+
 def _vertex_stage(scene: Scene, view, proj, config: RenderConfig):
     """Returns (clip_pos (V,4), attrs (V,A), face_rgb (T,3))."""
     mesh = scene.mesh
     mode = config.mode
-    if mode not in (MODE_TEXTURED, MODE_DEPTH_ONLY):
-        raise NotImplementedError(
-            f"mode {MODE_NAMES[mode]!r} is not ported yet (textured, depth_only)"
-        )
+    if mode == MODE_PHONG:
+        raise NotImplementedError("mode 'phong' is not ported yet")
     dev = mesh.positions.device
     V = mesh.num_vertices
     mats = scene.model_matrices[mesh.transform_id.long()]  # (V,4,4)
@@ -173,23 +185,28 @@ def _vertex_stage(scene: Scene, view, proj, config: RenderConfig):
     A = config.attr_width
     face_rgb = torch.zeros((mesh.num_triangles, 3), dtype=F32, device=dev)
     attrs = torch.zeros((V, A), dtype=F32, device=dev)
-    if mode == MODE_TEXTURED:
+    # point lights (when present) need surface positions
+    has_pt = scene.lights.pt_pos.shape[0] > 0
+    mat = scene.materials
+    if mode == MODE_FLAT:
+        ind = mesh.indices.long()
+        w0, w1, w2 = world[ind[:, 0]], world[ind[:, 1]], world[ind[:, 2]]
+        fn = m3.normalize(m3.cross(w1 - w0, w2 - w0))
+        mid = mesh.material_id.long()
+        centroid = ((w0 + w1) + w2) * (1.0 / 3.0) if has_pt else None
+        face_rgb = sm.shade_flat_face(fn, mat.base_color[mid], mat.kd[mid], scene.lights,
+                                      centroid=centroid)
+    elif mode in (MODE_GOURAUD, MODE_TEXTURED):
         n_world = m3.normalize(m3.matvec(mats[:, :3, :3], mesh.normals))
-        if mesh.vert_mat is None:
-            raise ValueError(
-                "textured mode needs Mesh.vert_mat; attach it on the host with "
-                "xr_torch.scene.procedural.with_vert_mat"
-            )
-        vm = mesh.vert_mat.long()
-        has_pt = scene.lights.pt_pos.shape[0] > 0
+        vm = _vert_mat(mesh).long()
         lit = sm.shade_vertex_lit(
             n_world,
-            scene.materials.base_color[vm],
-            scene.materials.kd[vm],
+            mat.base_color[vm],
+            mat.kd[vm],
             scene.lights,
             world_pos=world if has_pt else None,
         )
-        attrs = torch.cat([mesh.uvs, lit], dim=1)
+        attrs = lit if mode == MODE_GOURAUD else torch.cat([mesh.uvs, lit], dim=1)
     return clip, attrs, face_rgb
 
 

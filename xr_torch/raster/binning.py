@@ -34,13 +34,40 @@ def grid_dims(config: RenderConfig) -> Tuple[int, int]:
     )
 
 
-class BinResult(NamedTuple):
-    """sid: (even length,) i32 ids sorted by (tile, id); tile t's segment is
-    sid[starts[t] : starts[t] + raw_counts[t]]. large_ids (lcap,) i32
-    ascending, LIST_EMPTY-padded; large_count () i32 (<= lcap). dropped ()
-    i32 counts entries over bin_capacity plus large-bucket overflow, as the
-    reference's lists path reports it; large_dropped () i32."""
+def tile_pixels(config: RenderConfig, device, y_offset: int = 0):
+    """Fixed-point pixel centers of every tile, px (ntiles, 1, 1, TW) and
+    py (ntiles, 1, TH, 1), broadcasting over a chunk axis; rows start at
+    y_offset of the full frame."""
+    nty, ntx = grid_dims(config)
+    TH, TW, sub = config.tile_h, config.tile_w, config.subpixel
+    col = torch.arange(ntx * TW, dtype=I32, device=device) * sub + sub // 2
+    row = (torch.arange(nty * TH, dtype=I32, device=device) + y_offset) * sub + sub // 2
+    px = col.reshape(1, ntx, 1, TW).expand(nty, ntx, 1, TW).reshape(nty * ntx, 1, 1, TW)
+    py = row.reshape(nty, 1, TH, 1).expand(nty, ntx, TH, 1).reshape(nty * ntx, 1, TH, 1)
+    return px, py
 
+
+def untile(a: torch.Tensor, config: RenderConfig) -> torch.Tensor:
+    """(ntiles, TH, TW) per-tile values -> the (H, W) framebuffer."""
+    nty, ntx = grid_dims(config)
+    TH, TW = config.tile_h, config.tile_w
+    return a.reshape(nty, ntx, TH, TW).permute(0, 2, 1, 3).reshape(nty * TH, ntx * TW)[
+        : config.height, : config.width
+    ]
+
+
+class BinResult(NamedTuple):
+    """lists (ntiles, bin_capacity) i32: each tile's first bin_capacity ids,
+    ascending, LIST_EMPTY-padded; counts (ntiles,) i32 = min(raw_counts,
+    bin_capacity). sid: (even length,) i32 ids sorted by (tile, id); tile
+    t's segment is sid[starts[t] : starts[t] + raw_counts[t]]. large_ids
+    (lcap,) i32 ascending, LIST_EMPTY-padded; large_count () i32 (<= lcap).
+    dropped () i32 counts entries over bin_capacity plus large-bucket
+    overflow, as the reference's lists path reports it; large_dropped ()
+    i32."""
+
+    lists: torch.Tensor
+    counts: torch.Tensor
     sid: torch.Tensor
     starts: torch.Tensor
     raw_counts: torch.Tensor
@@ -93,7 +120,8 @@ def span_classes(tx0, tx1, ty0, ty1, valid, config: RenderConfig):
 
 
 def bin_triangles(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> BinResult:
-    """Pair emission -> one key sort -> per-tile segments (searchsorted)."""
+    """Pair emission -> one key sort -> per-tile segments (searchsorted)
+    -> capped per-tile lists (gathers from the sorted ids)."""
     if config.bin_zorder:
         raise NotImplementedError("bin_zorder is not ported yet")
     if config.bin_pairs != 4:
@@ -160,6 +188,11 @@ def bin_triangles(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> BinRe
     starts = torch.searchsorted(stile, tgt, right=False, out_int32=True)
     ends = torch.searchsorted(stile, tgt, right=True, out_int32=True)
     raw_counts = ends - starts
+    cap = config.bin_capacity
+    counts = torch.clamp_max(raw_counts, cap)
+    col = torch.arange(cap, dtype=I32, device=dev)
+    gidx = torch.clamp(starts[:, None] + col[None, :], 0, sid.shape[0] - 1).long()
+    lists = torch.where(col[None, :] < counts[:, None], sid[gidx], LIST_EMPTY)
 
     # global large bucket, ascending ids
     to_large = valid & ~small & ~medium
@@ -172,10 +205,10 @@ def bin_triangles(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> BinRe
         large_ids = lsorted[:lcap]
     large_dropped = torch.clamp_min(large_count_raw - lcap, 0)
     dropped = (
-        torch.clamp_min(raw_counts - config.bin_capacity, 0).sum(dtype=I32)
+        torch.clamp_min(raw_counts - cap, 0).sum(dtype=I32)
         + large_dropped
     )
     return BinResult(
-        sid=sid, starts=starts, raw_counts=raw_counts, large_ids=large_ids,
+        lists=lists, counts=counts, sid=sid, starts=starts, raw_counts=raw_counts, large_ids=large_ids,
         large_count=large_count, large_dropped=large_dropped, dropped=dropped,
     )

@@ -40,6 +40,38 @@ def resolve_better(z_new, id_new, z_best, id_best):
     return (z_new < z_best) | ((z_new == z_best) & (id_new < id_best))
 
 
+def new_carry(shape, depth_test: bool, device):
+    """(z, id) carry of a fold: (+inf, BG), or id -1 ("none") in painter's
+    order."""
+    zb = torch.full(shape, BG_DEPTH, dtype=torch.float32, device=device)
+    tb = torch.full(shape, BG_TRI_ID if depth_test else -1, dtype=torch.int32, device=device)
+    return zb, tb
+
+
+def merge_chunk(zb, tb, zf, ids, depth_test: bool):
+    """Merge one chunk into the (N, ...) carry: zf (N, K, ...) with +inf
+    where uncovered, ids broadcasting against it. With the depth test the
+    chunk's (z, id) lexicographic minimum wins if strictly better; in
+    painter's order its highest covered id wins if higher."""
+    if depth_test:
+        z_new = zf.amin(1)
+        id_new = torch.where(zf == z_new[:, None], ids, BG_TRI_ID).amin(1)
+        id_new = torch.where(torch.isinf(z_new), BG_TRI_ID, id_new)
+        upd = resolve_better(z_new, id_new, zb, tb)
+    else:
+        keyed = torch.where(torch.isinf(zf), -1, ids.expand(zf.shape))
+        idx = keyed.argmax(1, keepdim=True)
+        id_new = torch.gather(keyed, 1, idx)[:, 0]
+        z_new = torch.gather(zf, 1, idx)[:, 0]
+        upd = id_new > tb
+    return torch.where(upd, z_new, zb), torch.where(upd, id_new, tb)
+
+
+def final_ids(tb, depth_test: bool):
+    """Painter's "none" (-1) becomes BG once the fold is done."""
+    return tb if depth_test else torch.where(tb < 0, BG_TRI_ID, tb)
+
+
 def tri_fragment(xs, ys, z, px, py, depth_test_range: bool = True):
     """Coverage + depth of setup triangles at fixed-point points."""
     mask, (e0, e1, e2) = fp.coverage(xs, ys, px, py)

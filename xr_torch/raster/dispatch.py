@@ -1,16 +1,41 @@
 """Visibility dispatch of the port (port of ``xr/raster/dispatch.py``).
 
-On the binned path ``backend="auto"`` (and ``"pallas_stream"``, its TPU
-name) is the streaming visibility kernel; whether the CUDA kernel or its
-plain version runs is decided by the tensors' device alone, inside
-``stream.vis_stream``. The brute-force path and the ``jnp`` and
-``pallas_smem`` backends are not ported yet and raise.
+Raster paths and backends, all with the same result:
+  brute         — every triangle against every pixel (``lists``); ``auto``
+                  takes it at capacity <= 2048
+  jnp           — the portable tile-list fold (``lists``)
+  pallas_smem   — the per-tile list kernel (``smem``, CUDA ``vis_lists``)
+  pallas_stream — the streaming kernel (``stream``, CUDA ``vis_stream``);
+                  ``auto`` on the binned path
+Whether a CUDA kernel or its plain version runs is decided by the tensors'
+device alone, inside ``stream.vis_stream`` and ``smem.vis_lists``.
+
+The reference's SMEM budget rule is kept: ``pallas_smem`` with record
+windows past 900,000 bytes streams instead, so the backend that runs — and
+with it ``bin_overflow``, which each backend counts its own way — is the
+reference's for every config.
 """
 
 from __future__ import annotations
 
+import torch
+
 from xr_torch.core.types import RenderConfig
-from xr_torch.raster import stream
+from xr_torch.raster import lists, smem, stream
+from xr_torch.raster.records import NFIELDS
+
+SMEM_BUDGET = 900_000
+
+
+def _pad128(n: int) -> int:
+    return (n + 127) // 128 * 128
+
+
+def _smem_bytes(config: RenderConfig) -> int:
+    """SMEM footprint of the reference's pallas_smem record windows."""
+    small = NFIELDS * 4 * _pad128(config.bin_capacity) * 2  # double-buffered
+    large = NFIELDS * 4 * _pad128(config.large_capacity)
+    return small + large
 
 
 def visibility(tri, config: RenderConfig, capacity: int, y_offset: int = 0):
@@ -18,11 +43,17 @@ def visibility(tri, config: RenderConfig, capacity: int, y_offset: int = 0):
     path = config.raster_path
     if path == "auto":
         path = "brute" if capacity <= 2048 else "binned"
-    if path != "binned":
-        raise NotImplementedError(
-            f"raster_path {path!r} is not ported yet (capacity {capacity}; "
-            "auto takes brute at <= 2048 records)"
-        )
-    if config.backend not in ("auto", "pallas_stream"):
-        raise NotImplementedError(f"backend {config.backend!r} is not ported yet")
-    return stream.visibility_binned(tri, config, y_offset=y_offset)
+    if path == "brute":
+        tid, zbuf = lists.visibility_brute(tri, config, y_offset=y_offset)
+        return tid, zbuf, torch.zeros((), dtype=torch.int32, device=tid.device)
+
+    backend = config.backend
+    if backend == "auto":
+        backend = "pallas_stream"
+    if backend == "pallas_smem" and _smem_bytes(config) > SMEM_BUDGET:
+        backend = "pallas_stream"
+    if backend == "pallas_stream":
+        return stream.visibility_binned(tri, config, y_offset=y_offset)
+    if backend == "pallas_smem":
+        return smem.visibility_binned(tri, config, y_offset=y_offset)
+    return lists.visibility_binned(tri, config, y_offset=y_offset)

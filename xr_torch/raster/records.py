@@ -1,7 +1,8 @@
-"""Plane-form setup records of the visibility kernel (port of
+"""Plane-form setup records of the visibility kernels (port of
 ``pack_tri_records`` / ``gather_field_records`` in
-``xr/raster/pallas_smem.py``). Everything derivable per record is computed
-here once, at capacity scale, so the per-pixel loop only loads.
+``xr/raster/pallas_smem.py``), and the record fold of the kernels' plain
+PyTorch versions. Everything derivable per record is computed here once, at
+capacity scale, so the per-pixel loop only loads.
 
 Field map of the (C, 18) int32 record:
   0..8   a_k, b_k, c_k per edge k (edge opposite vertex k):
@@ -22,9 +23,13 @@ from __future__ import annotations
 
 import torch
 
+from xr_torch.core.types import RenderConfig
+from xr_torch.raster import common as rc
+from xr_torch.raster.binning import grid_dims, tile_pixels, untile
 from xr_torch.raster.common import BG_TRI_ID
 
 NFIELDS = 18
+PLAIN_CHUNK = 8  # records folded per step of the plain version
 _B16 = 32768
 I32, F32 = torch.int32, torch.float32
 
@@ -80,3 +85,59 @@ def gather_field_records(lists: torch.Tensor, packed: torch.Tensor, C: int) -> t
     empty = (lists >= C)[..., None]
     is_id = torch.arange(NFIELDS, device=lists.device) == 14
     return torch.where(empty & is_id, BG_TRI_ID, rows)
+
+
+def _fold_chunk(zb, tb, r, px, py, depth_test: bool):
+    """Fold (ntiles, K, 18) gathered records (id BG = empty slot) into the
+    (ntiles, TH, TW) carry, the kernels' per-pixel test batched over K."""
+
+    def f(k):
+        return r[:, :, k, None, None]
+
+    e = [f(3 * k) * px + f(3 * k + 1) * py + f(3 * k + 2) for k in range(3)]
+    of = f(15)
+    mask = (e[0] >= (of & 1)) & (e[1] >= ((of >> 1) & 1)) & (e[2] >= ((of >> 2) & 1))
+    fz = r[..., 9:13].contiguous().view(F32)
+    inv = fz[:, :, 3, None, None]
+    zf = (
+        (e[0].to(F32) * inv) * fz[:, :, 0, None, None]
+        + (e[1].to(F32) * inv) * fz[:, :, 1, None, None]
+    ) + (e[2].to(F32) * inv) * fz[:, :, 2, None, None]
+    ids = f(14)
+    mask = mask & rc.depth_range_mask(zf) & (ids != BG_TRI_ID)
+    return rc.merge_chunk(zb, tb, torch.where(mask, zf, rc.BG_DEPTH), ids, depth_test)
+
+
+def fold_plain(rec: torch.Tensor, chunks, config: RenderConfig, tile_ran=None):
+    """The visibility kernels' plain PyTorch version: fold id chunks into
+    every tile, batched over tiles. chunks yields (1 or ntiles, K) i32 ids
+    (ids >= C are empty slots; one row is shared by every tile, as the
+    large bucket is). tile_ran (ntiles,) i32: tiles with 0 stay background.
+    Returns (tid (H,W) i32, z (H,W) f32, +inf background)."""
+    nty, ntx = grid_dims(config)
+    ntiles = nty * ntx
+    C = rec.shape[0]
+    px, py = tile_pixels(config, rec.device)
+    zb, tb = rc.new_carry((ntiles, config.tile_h, config.tile_w), config.depth_test, rec.device)
+    for ids in chunks:
+        r = gather_field_records(ids, rec, C).expand(ntiles, -1, NFIELDS)
+        zb, tb = _fold_chunk(zb, tb, r, px, py, config.depth_test)
+    tb = rc.final_ids(tb, config.depth_test)
+    if tile_ran is not None:
+        ran = tile_ran[:, None, None] != 0
+        tb = torch.where(ran, tb, BG_TRI_ID)
+        zb = torch.where(ran, zb, rc.BG_DEPTH)
+    return untile(tb, config), untile(zb, config)
+
+
+def id_chunks(ids: torch.Tensor, starts: torch.Tensor, n: torch.Tensor, C: int):
+    """The segments ids[starts[i] : starts[i] + n[i]] of a flat id array,
+    PLAIN_CHUNK entries at a time: (rows, PLAIN_CHUNK) i32 chunks with the
+    empty slot C past each segment's end. The trip count is read from the
+    data (one host read)."""
+    n_max = int(n.max()) if n.numel() else 0
+    j = torch.arange(PLAIN_CHUNK, dtype=I32, device=ids.device)[None, :]
+    for s in range(0, n_max, PLAIN_CHUNK):
+        k = s + j
+        gidx = torch.clamp(starts[:, None] + k, 0, ids.shape[0] - 1).long()
+        yield torch.where(k < n[:, None], ids[gidx], C)

@@ -16,6 +16,7 @@ tensors it launches the kernel, and raises if that fails.
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -23,13 +24,10 @@ import torch
 from xr_torch import kernels
 from xr_torch.core.types import RenderConfig
 from xr_torch.pipeline.geometry import MAX_FAN, TriBuf, clip_budget
-from xr_torch.raster import common as rc
 from xr_torch.raster.binning import bin_triangles, grid_dims
-from xr_torch.raster.records import gather_field_records, pack_tri_records
+from xr_torch.raster.records import fold_plain, id_chunks, pack_tri_records
 
-BG = rc.BG_TRI_ID
-I32, F32 = torch.int32, torch.float32
-PLAIN_CHUNK = 8  # records folded per step of the plain version
+I32 = torch.int32
 
 
 def stream_blocks(config: RenderConfig, num_records: int, num_src: int = 0) -> int:
@@ -88,89 +86,18 @@ def prepare(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> StreamInput
     )
 
 
-def _fold_chunk(zb, tb, r, px, py, depth_test: bool):
-    """Fold (ntiles, K, 18) gathered records (id BG = empty slot) into the
-    (ntiles, TH, TW) carry, the kernel's per-pixel test batched over K."""
-
-    def f(k):
-        return r[:, :, k, None, None]
-
-    e = [f(3 * k) * px + f(3 * k + 1) * py + f(3 * k + 2) for k in range(3)]
-    of = f(15)
-    mask = (e[0] >= (of & 1)) & (e[1] >= ((of >> 1) & 1)) & (e[2] >= ((of >> 2) & 1))
-    fz = r[..., 9:13].contiguous().view(F32)
-    inv = fz[:, :, 3, None, None]
-    zf = (
-        (e[0].to(F32) * inv) * fz[:, :, 0, None, None]
-        + (e[1].to(F32) * inv) * fz[:, :, 1, None, None]
-    ) + (e[2].to(F32) * inv) * fz[:, :, 2, None, None]
-    ids = f(14)
-    mask = mask & (zf >= 0.0) & (zf <= 1.0) & (ids != BG)
-    zf = torch.where(mask, zf, rc.BG_DEPTH)
-    if depth_test:
-        z_new = zf.amin(1)
-        id_new = torch.where(zf == z_new[:, None], ids, BG).amin(1)
-        id_new = torch.where(torch.isinf(z_new), BG, id_new)
-        upd = rc.resolve_better(z_new, id_new, zb, tb)
-    else:
-        keyed = torch.where(mask, ids, -1)
-        idx = keyed.argmax(1, keepdim=True)
-        id_new = torch.gather(keyed, 1, idx)[:, 0]
-        z_new = torch.gather(zf, 1, idx)[:, 0]
-        upd = id_new > tb
-    return torch.where(upd, z_new, zb), torch.where(upd, id_new, tb)
-
-
 def vis_stream_plain(inp: StreamInputs, config: RenderConfig):
-    """Plain PyTorch version of the kernel on the same inputs: the tile fold
-    batched over tiles and chunked over records, walking the uncapped
-    segments. Returns (tid (H,W) i32, z (H,W) f32, +inf background).
-    Its loop trip counts are read from the data (one host read each)."""
-    H, W = config.height, config.width
-    TH, TW = config.tile_h, config.tile_w
-    nty, ntx = grid_dims(config)
-    ntiles = nty * ntx
-    sub = config.subpixel
-    dev = inp.rec.device
+    """Plain PyTorch version of the kernel on the same inputs: the large
+    bucket, then each tile's uncapped segment, folded into every tile at
+    once; tiles outside the budget stay background. Returns (tid (H,W) i32,
+    z (H,W) f32, +inf background)."""
     C = inp.rec.shape[0]
-    chunk = PLAIN_CHUNK
-
-    col = torch.arange(ntx * TW, dtype=I32, device=dev) * sub + sub // 2
-    row = torch.arange(nty * TH, dtype=I32, device=dev) * sub + sub // 2
-    # (ntiles, 1, 1, TW) and (ntiles, 1, TH, 1): broadcast over the record axis
-    px = col.reshape(1, ntx, 1, TW).expand(nty, ntx, 1, TW).reshape(ntiles, 1, 1, TW)
-    py = row.reshape(nty, 1, TH, 1).expand(nty, ntx, TH, 1).reshape(ntiles, 1, TH, 1)
-    zb = torch.full((ntiles, TH, TW), rc.BG_DEPTH, dtype=F32, device=dev)
-    tb = torch.full((ntiles, TH, TW), BG if config.depth_test else -1, dtype=I32, device=dev)
-    j = torch.arange(chunk, dtype=I32, device=dev)
-
-    n_large = int(inp.large_count[0])
-    for s in range(0, n_large, chunk):
-        k = s + j
-        ids = torch.where(k < n_large, inp.large_ids[torch.clamp_max(k, n_large - 1).long()], C)
-        r = gather_field_records(ids, inp.rec, C)[None].expand(ntiles, chunk, 18)
-        zb, tb = _fold_chunk(zb, tb, r, px, py, config.depth_test)
-
-    n_max = int(inp.run_counts.max()) if ntiles else 0
-    last = inp.sid.shape[0] - 1
-    for s in range(0, n_max, chunk):
-        k = s + j[None, :]
-        gidx = torch.clamp(inp.starts[:, None] + k, 0, last).long()
-        ids = torch.where(k < inp.run_counts[:, None], inp.sid[gidx], C)
-        r = gather_field_records(ids, inp.rec, C)
-        zb, tb = _fold_chunk(zb, tb, r, px, py, config.depth_test)
-
-    if not config.depth_test:
-        tb = torch.where(tb < 0, BG, tb)
-        zb = torch.where(tb == BG, rc.BG_DEPTH, zb)
-    ran = inp.tile_ran[:, None, None] != 0
-    tb = torch.where(ran, tb, BG)
-    zb = torch.where(ran, zb, rc.BG_DEPTH)
-
-    def untile(a):
-        return a.reshape(nty, ntx, TH, TW).permute(0, 2, 1, 3).reshape(nty * TH, ntx * TW)[:H, :W]
-
-    return untile(tb), untile(zb)
+    zero = torch.zeros((1,), dtype=I32, device=inp.rec.device)
+    chunks = itertools.chain(
+        id_chunks(inp.large_ids, zero, inp.large_count, C),
+        id_chunks(inp.sid, inp.starts, inp.run_counts, C),
+    )
+    return fold_plain(inp.rec, chunks, config, tile_ran=inp.tile_ran)
 
 
 def vis_stream(inp: StreamInputs, config: RenderConfig):

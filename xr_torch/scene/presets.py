@@ -1,7 +1,10 @@
-"""Presets of the port (port of ``xr/scene/presets.py``): config3, the
-headline frame, and ``small_preset``. A preset bundles a host-side numpy
-Scene, ``animate(t)`` returning numpy (Camera, model matrices), and the
-RenderConfig; ``xr_torch.convert.to_device`` moves both onto a device."""
+"""Presets of the port (port of ``xr/scene/presets.py``): config1 (flat
+cube), config2 (Gouraud icospheres), config3 (the headline textured
+terrain) and ``small_preset``. A preset bundles a host-side numpy Scene,
+``animate(t)`` returning numpy (Camera, model matrices), and the
+RenderConfig; ``xr_torch.convert.scene_to_torch`` moves the scene onto a
+device. The host matrix builders give the bits of the reference's numpy
+ones."""
 
 from __future__ import annotations
 
@@ -11,6 +14,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 
 from xr_torch.core.types import (
+    MODE_FLAT,
+    MODE_GOURAUD,
     MODE_TEXTURED,
     Camera,
     Lights,
@@ -31,6 +36,109 @@ class Preset(NamedTuple):
 
 def _identity_mats(n=1):
     return np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+
+
+def _mat4(rows) -> np.ndarray:
+    return np.stack([np.stack(r) for r in rows]).astype(np.float32)
+
+
+def rotation_x(angle) -> np.ndarray:
+    angle = np.asarray(angle, np.float32)
+    c, s = np.cos(angle), np.sin(angle)
+    o, i = np.zeros((), np.float32), np.ones((), np.float32)
+    return _mat4([[i, o, o, o], [o, c, -s, o], [o, s, c, o], [o, o, o, i]])
+
+
+def rotation_y(angle) -> np.ndarray:
+    angle = np.asarray(angle, np.float32)
+    c, s = np.cos(angle), np.sin(angle)
+    o, i = np.zeros((), np.float32), np.ones((), np.float32)
+    return _mat4([[c, o, s, o], [o, i, o, o], [-s, o, c, o], [o, o, o, i]])
+
+
+def translation(v) -> np.ndarray:
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 3] = np.asarray(v, np.float32)
+    return m
+
+
+def config1_cube() -> Preset:
+    """Config 1: a spinning flat-shaded cube (12 triangles), 512x512, depth
+    test on; brute-force visibility (capacity 79 <= 2048)."""
+    scene = Scene(
+        mesh=proc.cube(1.2),
+        materials=Material.table([{"base_color": (0.9, 0.35, 0.25)}]),
+        textures=None,
+        lights=Lights.make(
+            dir_dirs=[(-0.5, -0.7, -0.5)],
+            dir_colors=[(1.0, 1.0, 1.0)],
+            ambient=(0.15, 0.15, 0.15),
+        ),
+        model_matrices=_identity_mats(),
+    )
+
+    def animate(t):
+        model = rotation_y(t * 0.9) @ rotation_x(t * 0.37)
+        cam = Camera(
+            eye=np.asarray((1.9, 1.4, 2.6), np.float32),
+            target=np.asarray((0.0, 0.0, 0.0), np.float32),
+            up=np.asarray((0.0, 1.0, 0.0), np.float32),
+            fov_y=np.asarray(np.deg2rad(50.0), np.float32),
+            near=np.asarray(0.1, np.float32),
+            far=np.asarray(20.0, np.float32),
+        )
+        return cam, model[None].astype(np.float32)
+
+    cfg = RenderConfig(width=512, height=512, mode=MODE_FLAT, depth_test=True)
+    return Preset("config1_cube", scene, animate, cfg)
+
+
+def config2_icospheres() -> Preset:
+    """Config 2: a 6x6 grid of Gouraud-lit icospheres (11,520 triangles),
+    one directional light, 1920x1080, 128x128 tiles, bin_capacity 2048."""
+    spheres = []
+    for k in range(36):
+        gz, gx = divmod(k, 6)
+        s = proc.icosphere(2, radius=0.55, mat=k % 4)
+        m = translation(((gx - 2.5) * 1.5, 0.0, (gz - 2.5) * 1.5))
+        spheres.append(proc.transformed(s, m))
+    scene = Scene(
+        mesh=proc.with_vert_mat(proc.merge_meshes(spheres)),
+        materials=Material.table(
+            [
+                {"base_color": (0.85, 0.3, 0.3)},
+                {"base_color": (0.3, 0.8, 0.4)},
+                {"base_color": (0.3, 0.45, 0.9)},
+                {"base_color": (0.9, 0.8, 0.3)},
+            ]
+        ),
+        textures=None,
+        lights=Lights.make(
+            dir_dirs=[(-0.4, -0.8, -0.45)],
+            dir_colors=[(1.0, 0.98, 0.9)],
+            ambient=(0.12, 0.12, 0.14),
+        ),
+        model_matrices=_identity_mats(),
+    )
+
+    def animate(t):
+        ang = np.asarray(t * 0.25, np.float32)
+        eye = np.stack(
+            [7.5 * np.cos(ang), np.asarray(4.5, np.float32), 7.5 * np.sin(ang)]
+        )
+        cam = Camera(
+            eye=eye.astype(np.float32),
+            target=np.asarray((0.0, 0.0, 0.0), np.float32),
+            up=np.asarray((0.0, 1.0, 0.0), np.float32),
+            fov_y=np.asarray(np.deg2rad(55.0), np.float32),
+            near=np.asarray(0.2, np.float32),
+            far=np.asarray(60.0, np.float32),
+        )
+        return cam, _identity_mats()
+
+    cfg = RenderConfig(width=1920, height=1080, mode=MODE_GOURAUD,
+                       tile_h=128, tile_w=128, bin_capacity=2048)
+    return Preset("config2_icospheres", scene, animate, cfg)
 
 
 def config3_terrain(nx: int = 224, nz: int = 224) -> Preset:
@@ -78,3 +186,10 @@ def small_preset(preset: Preset, width=160, height=120, **overrides) -> Preset:
     """Shrink a preset's framebuffer (tests, goldens)."""
     cfg = dataclasses.replace(preset.config, width=width, height=height, **overrides)
     return Preset(preset.name, preset.scene, preset.animate, cfg)
+
+
+ALL_PRESETS = {
+    "config1": config1_cube,
+    "config2": config2_icospheres,
+    "config3": config3_terrain,
+}

@@ -1,6 +1,8 @@
-"""Procedural meshes for the port (host numpy; port of the grid/terrain part
-of ``xr/scene/procedural.py``). They build exactly the reference's arrays,
-so the same preset gives both packages the same scene."""
+"""Procedural meshes for the port (host numpy; port of the cube, icosphere,
+grid, terrain and mesh-combining parts of ``xr/scene/procedural.py``). They
+build exactly the reference's arrays, so the same preset gives both
+packages the same scene. Front faces are counter-clockwise viewed from
+outside."""
 
 from __future__ import annotations
 
@@ -20,6 +22,81 @@ def _mesh(pos, nrm, uv, idx, mat=0) -> Mesh:
         material_id=np.full(t.shape[0], mat, np.int32),
         transform_id=np.zeros(pos.shape[0], np.int32),
     )
+
+
+def cube(size: float = 1.0, mat: int = 0) -> Mesh:
+    """Axis-aligned cube centered at the origin; 24 vertices (face normals
+    and uvs), 12 triangles."""
+    s = size * 0.5
+    faces = [
+        # (normal, tangent(u), bitangent(v))
+        ((0, 0, 1), (1, 0, 0), (0, 1, 0)),
+        ((0, 0, -1), (-1, 0, 0), (0, 1, 0)),
+        ((1, 0, 0), (0, 0, -1), (0, 1, 0)),
+        ((-1, 0, 0), (0, 0, 1), (0, 1, 0)),
+        ((0, 1, 0), (1, 0, 0), (0, 0, -1)),
+        ((0, -1, 0), (1, 0, 0), (0, 0, 1)),
+    ]
+    pos, nrm, uv, idx = [], [], [], []
+    for n, u, v in faces:
+        n, u, v = (np.asarray(a, np.float32) for a in (n, u, v))
+        base = len(pos)
+        # corners CCW viewed from outside: (-u-v), (+u-v), (+u+v), (-u+v)
+        for cu, cv, tu, tv in ((-1, -1, 0, 1), (1, -1, 1, 1), (1, 1, 1, 0), (-1, 1, 0, 0)):
+            pos.append(n * s + u * (cu * s) + v * (cv * s))
+            nrm.append(n)
+            uv.append((tu, tv))
+        idx += [(base, base + 1, base + 2), (base, base + 2, base + 3)]
+    return _mesh(pos, nrm, uv, idx, mat)
+
+
+def icosphere(subdivisions: int = 2, radius: float = 1.0, mat: int = 0) -> Mesh:
+    """Icosphere by midpoint subdivision (smooth normals, spherical uvs),
+    20 * 4**subdivisions triangles."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array(
+        [
+            (-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0),
+            (0, -1, t), (0, 1, t), (0, -1, -t), (0, 1, -t),
+            (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1),
+        ],
+        np.float64,
+    )
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = [
+        (0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+        (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+        (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+        (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1),
+    ]
+    verts = [tuple(v) for v in verts]
+    for _ in range(subdivisions):
+        cache = {}
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in cache:
+                m = np.asarray(verts[a]) + np.asarray(verts[b])
+                m /= np.linalg.norm(m)
+                cache[key] = len(verts)
+                verts.append(tuple(m))
+            return cache[key]
+
+        new_faces = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = new_faces
+
+    v = np.asarray(verts, np.float64)
+    uv = np.stack(
+        [
+            0.5 + np.arctan2(v[:, 2], v[:, 0]) / (2 * np.pi),
+            0.5 - np.arcsin(np.clip(v[:, 1], -1, 1)) / np.pi,
+        ],
+        axis=1,
+    )
+    return _mesh(v * radius, v.copy(), uv, faces, mat)
 
 
 def grid_plane(nx: int, nz: int, size: float = 1.0, mat: int = 0) -> Mesh:
@@ -90,6 +167,42 @@ def terrain(nx: int = 224, nz: int = 224, size: float = 40.0, height: float = 4.
         material_id=base.material_id,
         transform_id=base.transform_id,
     )
+
+
+def merge_meshes(meshes, transform_ids=None) -> Mesh:
+    """Concatenate meshes into one triangle soup; optional per-mesh
+    transform ids select rows of Scene.model_matrices."""
+    off = 0
+    pos, nrm, uv, idx, mid, tid = [], [], [], [], [], []
+    for k, m in enumerate(meshes):
+        pos.append(m.positions)
+        nrm.append(m.normals)
+        uv.append(m.uvs)
+        idx.append(m.indices + off)
+        mid.append(m.material_id)
+        t = transform_ids[k] if transform_ids is not None else 0
+        tid.append(np.full(m.positions.shape[0], t, np.int32))
+        off += m.positions.shape[0]
+    return Mesh(
+        positions=np.concatenate(pos),
+        normals=np.concatenate(nrm),
+        uvs=np.concatenate(uv),
+        indices=np.concatenate(idx),
+        material_id=np.concatenate(mid),
+        transform_id=np.concatenate(tid),
+    )
+
+
+def transformed(mesh: Mesh, matrix: np.ndarray) -> Mesh:
+    """Bake a rigid or uniform-scale transform into the vertex data."""
+    m = np.asarray(matrix, np.float32)
+    p4 = np.concatenate(
+        [mesh.positions, np.ones((mesh.positions.shape[0], 1), np.float32)], 1
+    )
+    pos = (p4 @ m.T)[:, :3]
+    nrm = mesh.normals @ m[:3, :3].T
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
+    return mesh.replace(positions=pos.astype(np.float32), normals=nrm.astype(np.float32))
 
 
 def vert_mat(mesh: Mesh) -> np.ndarray:

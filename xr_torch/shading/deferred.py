@@ -1,9 +1,10 @@
-"""Deferred shading of the port (port of the textured path of
-``xr/shading/deferred.py``): every pixel is shaded exactly once from the
-winning triangle's record.
+"""Deferred shading of the port (port of the flat, Gouraud and textured
+paths of ``xr/shading/deferred.py``): every pixel is shaded exactly once
+from the winning triangle's record.
 
-One (C, K) f32 record table is gathered per pixel by triangle id: xs(3)
-ys(3) mat_id(1) as exact f32 values (post-clip coords are far below 2^24),
+Flat shading reads the triangle's face color. Otherwise one (C, K) f32
+record table is gathered per pixel by triangle id: xs(3) ys(3) mat_id(1) as
+exact f32 values (post-clip coords are far below 2^24), in textured mode
 the six per-record texture-LOD derivative terms, then the attributes
 (vertex-major groups of 3) and the 1/w group. Interpolation is perspective
 correct with the reference's product set and add order.
@@ -15,7 +16,15 @@ import torch
 
 from xr_torch.core import fixedpoint as fp
 from xr_torch.core import shade_math as sm
-from xr_torch.core.types import MODE_DEPTH_ONLY, MODE_NAMES, MODE_TEXTURED, RenderConfig, Scene
+from xr_torch.core.types import (
+    MODE_DEPTH_ONLY,
+    MODE_FLAT,
+    MODE_GOURAUD,
+    MODE_NAMES,
+    MODE_TEXTURED,
+    RenderConfig,
+    Scene,
+)
 from xr_torch.raster.common import BG_TRI_ID, pixel_grids
 
 F32, I32 = torch.float32, torch.int32
@@ -83,19 +92,27 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig) -
     into (H, W, 3) f32 linear color."""
     if config.mode == MODE_DEPTH_ONLY:
         raise ValueError("depth-only pass has no shading")
-    if config.mode != MODE_TEXTURED:
+    if config.mode not in (MODE_FLAT, MODE_GOURAUD, MODE_TEXTURED):
         raise NotImplementedError(f"mode {MODE_NAMES[config.mode]!r} shading is not ported yet")
     H, W = tid.shape
-    px, py = pixel_grids(W, H, config.subpixel, tid.device)
-    px = px.reshape(-1)
-    py = py.reshape(-1)
     tid = tid.reshape(-1)
     bg = tid == BG_TRI_ID
     t = torch.where(bg, 0, tid).long()
+    bgc = torch.tensor(config.bg_color, dtype=F32, device=tid.device)
 
+    def finish(color):
+        return torch.where(bg[:, None], bgc, color).reshape(H, W, 3)
+
+    if config.mode == MODE_FLAT:
+        return finish(tri.face_rgb[t])
+
+    px, py = pixel_grids(W, H, config.subpixel, tid.device)
+    px = px.reshape(-1)
+    py = py.reshape(-1)
     A = config.attr_width
     pyr = scene.textures
-    uv_slot = 0 if pyr is not None and pyr.num_levels > 0 else None
+    textured = config.mode == MODE_TEXTURED and pyr is not None and pyr.num_levels > 0
+    uv_slot = 0 if textured else None
     table, lod_base = _pack_records(tri, A, config, uv_slot)
     rec = table[t]  # (N, K)
     xs = rec[:, 0:3].to(I32)
@@ -117,6 +134,9 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig) -
     def attr(j):
         return interp(j) * inv_denom
 
+    if config.mode == MODE_GOURAUD:
+        return finish(torch.stack([attr(0), attr(1), attr(2)], dim=-1))
+
     u, v = attr(0), attr(1)
     lit = torch.stack([attr(2), attr(3), attr(4)], dim=-1)
     if uv_slot is None:
@@ -124,6 +144,4 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig) -
     else:
         lod6 = tuple(rec[:, lod_base + i] for i in range(6))
         texc = _sample_texture(scene, u, v, lod6, e0, e1, e2, denom, mat_id)
-    color = texc * lit
-    bgc = torch.tensor(config.bg_color, dtype=F32, device=color.device)
-    return torch.where(bg[:, None], bgc, color).reshape(H, W, 3)
+    return finish(texc * lit)
