@@ -1,0 +1,223 @@
+"""The blend pass of the port (config4b: config4 with two transparent panes)
+on the CPU, against the reference on the same numpy inputs:
+- config4b at golden size against the checked-in golden (the golden rule of
+  tests/test_goldens.py:51-58) and against the reference Renderer (the
+  shadow-flip rule of tests/test_tpu_device_frames.py:55-85, as in
+  test_torch_phong.py), stats equal;
+- blend_capacity 2: the reference's blend_overflow, and strict readback
+  raises;
+- composite order is source-triangle order through clipping: a far pane
+  authored first and cut by the near plane (or by the guard band) into fan
+  records at the end of the record buffer still composites under the near
+  pane, as the reference's oracle does;
+- a textured transparent pane in a box's shadow (the reference's
+  tests/test_blend.py scene): the sampler and the shadow test run on
+  transparent fragments as on the reference's.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_phong import check_golden, check_reference, manifest
+from xr.app.renderer import Renderer as RefRenderer
+from xr.core import math3d as rm3
+from xr.core.types import (
+    MODE_FLAT, MODE_PHONG, Camera, Lights, Material, Mesh, RenderConfig, Scene,
+)
+from xr.cpu_ref import render_frame
+from xr.cpu_ref.margins import shadow_flip_risk
+from xr.scene import presets as ref_presets
+from xr.scene import procedural as rproc
+from xr.scene import texture as rtx
+from xr_torch import Renderer, convert, kernels
+from xr_torch.core import math3d as m3
+from xr_torch.pipeline.geometry import geometry
+from xr_torch.scene import presets
+
+torch.set_num_threads(1)
+
+
+def _port(scene_np, cam, cfg, strict=True):
+    """One frame of the port on the CPU from the reference's numpy scene."""
+    scene = convert.scene_to_torch(scene_np, "cpu")
+    r = Renderer(scene, convert.config_from(cfg), "cpu")
+    kernels.reset_launches()
+    frame = r.readback(r.step(scene, cam), strict=strict)
+    assert not any(kernels.launches.values())
+    return frame
+
+
+def test_config4b_matches_golden():
+    check_golden("config4b")
+
+
+@pytest.mark.parametrize("shadow_map_size", [128, 1024])
+def test_config4b_matches_reference_renderer(shadow_map_size):
+    check_reference("config4b", 0.0, shadow_map_size == 1024, shadow_map_size=shadow_map_size)
+
+
+def test_blend_overflow_matches_reference():
+    m = manifest("config4b")
+    p = ref_presets.small_preset(ref_presets.config4_blend(), m["width"], m["height"],
+                                 **{**m["overrides"], "blend_capacity": 2})
+    cam, mm = p.animate(0.0, np)
+    scene = p.scene.replace(model_matrices=mm)
+    r = RefRenderer(scene, p.config)
+    ref = r.readback(r.step(scene, cam), strict=False)
+    got = _port(scene, cam, p.config, strict=False)
+    assert int(ref.stats["blend_overflow"]) > 0
+    for k in ref.stats:
+        assert int(got.stats[k]) == int(ref.stats[k]), k
+    diff = np.abs(got.color.astype(int) - ref.color.astype(int)).max(axis=-1)
+    risk = shadow_flip_risk(scene, cam, p.config)
+    assert (diff * ~risk).max() <= 1 and (diff * risk).max() <= 180
+    # the port's own preset, through strict readback
+    pp = presets.small_preset(presets.config4_blend(), m["width"], m["height"],
+                              **{**m["overrides"], "blend_capacity": 2})
+    st = convert.scene_to_torch(pp.scene, "cpu")
+    rr = Renderer(st, pp.config, "cpu")
+    with pytest.raises(RuntimeError, match="blend_overflow"):
+        rr.readback(rr.step(st, cam))
+
+
+def _pane_scene(far_quad, alphas):
+    """Two transparent panes, the far one authored first: far_quad is its
+    four corners, the near pane a square at z = 2. The far pane is cut into
+    5 strips along its second edge (each strip spans the first edge, so
+    every strip meets what the whole pane meets), the near one into 3 x 3
+    quads: a scene of fewer than 9 triangles takes the identity record
+    layout, which the port does not run."""
+    quads = [(far_quad, 1, 5),
+             ([(-0.8, -0.9, 2.0), (0.8, -0.9, 2.0), (0.8, 0.9, 2.0), (-0.8, 0.9, 2.0)], 3, 3)]
+    pos, idx, mat = [], [], []
+    for m, (quad, nu, nv) in enumerate(quads):
+        q = np.asarray(quad, np.float64)
+        for i in range(nu):
+            for j in range(nv):
+                b = len(pos)
+                for u, v in ((i, j), (i + 1, j), (i + 1, j + 1), (i, j + 1)):
+                    u, v = u / nu, v / nv  # bilinear in the quad's corners
+                    pos.append(tuple((1 - v) * ((1 - u) * q[0] + u * q[1])
+                                     + v * ((1 - u) * q[3] + u * q[2])))
+                idx += [(b, b + 1, b + 2), (b, b + 2, b + 3)]
+                mat += [m, m]
+    v = len(pos)
+    mesh = Mesh(
+        positions=np.asarray(pos, np.float32),
+        normals=np.tile(np.asarray([(0.0, 0.0, 1.0)], np.float32), (v, 1)),
+        uvs=np.zeros((v, 2), np.float32),
+        indices=np.asarray(idx, np.int32),
+        material_id=np.asarray(mat, np.int32),
+        transform_id=np.zeros(v, np.int32),
+    )
+    return Scene(
+        mesh=mesh,
+        materials=Material.table([{"base_color": (1.0, 0.2, 0.1), "alpha": alphas[0]},
+                                  {"base_color": (0.1, 0.3, 1.0), "alpha": alphas[1]}]),
+        textures=None,
+        lights=Lights.make(ambient=(1.0, 1.0, 1.0)),
+        model_matrices=np.eye(4, dtype=np.float32)[None],
+    )
+
+
+FAR_PANES = {
+    # tilted from z = -1 up to z = 8, behind the eye: the near plane (z =
+    # 4.5) cuts both of its triangles
+    "near_plane": [(-1.5, -1.0, -1.0), (1.5, -1.0, -1.0), (1.5, 1.0, 8.0), (-1.5, 1.0, 8.0)],
+    # reaches x = -30: both triangles cross the guard band
+    # (tests/test_blend.py:105)
+    "guard_band": [(-30.0, -1.0, -1.0), (0.8, -1.0, -1.0), (0.8, 1.0, -1.0), (-30.0, 1.0, -1.0)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(FAR_PANES))
+def test_blend_order_survives_clipping(case):
+    cam = Camera(
+        eye=np.asarray((0.0, 0.0, 5.0), np.float32),
+        target=np.asarray((0.0, 0.0, 0.0), np.float32),
+        up=np.asarray((0.0, 1.0, 0.0), np.float32),
+        fov_y=np.asarray(np.deg2rad(60.0), np.float32),
+        near=np.asarray(0.5, np.float32),
+        far=np.asarray(50.0, np.float32),
+    )
+    cfg = RenderConfig(width=128, height=80, mode=MODE_FLAT, blend=True, cull_backfaces=False,
+                       raster_path="binned", bin_capacity=1024)
+    a0, a1 = 0.5, 0.4
+    scene = _pane_scene(FAR_PANES[case], (a0, a1))
+    got = _port(scene, cam, cfg)
+    ref = render_frame(scene, cam, cfg)
+    assert np.abs(got.color.astype(int) - ref.color.astype(int)).max() <= 1
+    for k in ref.stats:
+        assert int(got.stats[k]) == int(ref.stats[k]), k
+
+    def alone(m):  # each pane by itself, opaque: its color and footprint
+        s1 = _pane_scene(FAR_PANES[case], (1.0, 1.0))
+        keep = np.asarray(s1.mesh.material_id) == m
+        s1 = s1.replace(mesh=s1.mesh.replace(indices=np.asarray(s1.mesh.indices)[keep],
+                                             material_id=np.asarray(s1.mesh.material_id)[keep]))
+        return _port(s1, cam, dataclasses.replace(cfg, blend=False))
+
+    # the far pane really was cut: some of its source triangles are fans
+    tri = geometry(convert.scene_to_torch(scene, "cpu"),
+                   *m3.camera_matrices(convert.camera_to_torch(cam, "cpu"), 128 / 80, "cpu"),
+                   convert.config_from(cfg))
+    src = tri.src_id[tri.valid & (tri.mat_id == 0)].tolist()
+    assert len(src) > len(set(src)), "the far pane was not clipped"
+    f0, f1 = alone(0), alone(1)
+    both = (f0.depth < 1.0) & (f1.depth < 1.0)
+    assert both.sum() > 100, "the panes do not overlap on screen"
+    c0, c1 = f0.color / 255.0, f1.color / 255.0
+    want = (c0 * a0) * (1.0 - a1) + c1 * a1  # authored order over black
+    wrong = (c1 * a1) * (1.0 - a0) + c0 * a0
+    assert np.abs(got.color / 255.0 - want)[both].max() <= 2.5 / 255.0
+    assert np.abs(wrong - want)[both].max() > 10.0 / 255.0
+
+
+def _rich_blend_scene():
+    """tests/test_blend.py:235: opaque ground, a tall box west of a textured
+    transparent pane, the box's shadow falling onto the pane."""
+    ground = rproc.grid_plane(1, 1, size=12.0, mat=0)
+    box = rproc.transformed(rproc.cube(1.0, mat=1),
+                            rm3.translation((-2.2, 1.2, 0.0), np) @ rm3.scaling((0.5, 2.4, 3.0), np))
+    pane = rproc.transformed(rproc.grid_plane(1, 1, size=4.0, mat=2),
+                             rm3.translation((0.3, 1.0, 0.0), np))
+    return Scene(
+        mesh=rproc.merge_meshes([ground, box, pane]),
+        materials=Material.table([
+            {"base_color": (0.75, 0.75, 0.78), "ks": 0.0},
+            {"base_color": (0.8, 0.5, 0.3), "ks": 0.1},
+            {"base_color": (1.0, 1.0, 1.0), "ks": 0.0, "alpha": 0.5, "tex_id": 0},
+        ]),
+        textures=rtx.build_pyramid([rtx.checkerboard(32, 4)]),
+        lights=Lights.make(dir_dirs=[(1.0, -1.2, 0.15)], dir_colors=[(0.95, 0.95, 0.9)],
+                           ambient=(0.25, 0.25, 0.25)),
+        model_matrices=np.eye(4, dtype=np.float32)[None],
+    )
+
+
+def test_textured_shadowed_pane_matches_reference():
+    scene = _rich_blend_scene()
+    cam = Camera(
+        eye=np.asarray((2.5, 6.5, 6.5), np.float32),
+        target=np.asarray((0.3, 0.6, 0.0), np.float32),
+        up=np.asarray((0.0, 1.0, 0.0), np.float32),
+        fov_y=np.asarray(np.deg2rad(55.0), np.float32),
+        near=np.asarray(0.5, np.float32),
+        far=np.asarray(60.0, np.float32),
+    )
+    cfg = RenderConfig(width=192, height=120, mode=MODE_PHONG, shadow_map_size=256, blend=True,
+                       bin_capacity=4096, raster_path="binned")
+    got = _port(scene, cam, cfg)
+    ref = render_frame(scene, cam, cfg)
+    assert ((got.depth == 1.0) == (ref.depth == 1.0)).all()
+    diff = np.abs(got.color.astype(int) - ref.color.astype(int)).max(axis=-1)
+    risk = shadow_flip_risk(scene, cam, cfg)
+    assert int(risk.sum()) <= diff.size // 1000
+    assert (diff * ~risk).max() <= 1 and (diff * risk).max() <= 180
+    # the pane is there and textured: without its texture the frame changes
+    plain = scene.replace(materials=scene.materials.replace(
+        tex_id=np.asarray([-1, -1, -1], np.int32)))
+    assert (np.abs(_port(plain, cam, cfg).color.astype(int) - got.color.astype(int)) > 3).sum() > 300

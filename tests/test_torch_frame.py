@@ -2,7 +2,10 @@
 size): it matches the checked-in golden by the golden rule (no pixel more
 than 1 LSB off, coverage within 1e-6 of the manifest), and the reference
 Renderer on the same scene by the device-vs-oracle rule (coverage exact,
-depth within 1e-6, color within 1 LSB), with equal stats."""
+depth within 1e-6, color within 1 LSB), with equal stats. Also the
+Renderer's buffers and present queue, the layout axes, the options ported
+since the first slice (Phong, shadows and blending on the small terrain,
+against the reference Renderer) and the options that still raise."""
 
 import json
 import os
@@ -12,6 +15,7 @@ import pytest
 import torch
 
 from xr.app.renderer import Renderer as RefRenderer
+from xr.cpu_ref.margins import shadow_flip_risk
 from xr.scene import presets as ref_presets
 from xr_torch import Renderer, convert, kernels
 from xr_torch.core.image import read_png
@@ -143,6 +147,21 @@ def test_present_flush_and_buffer_reuse():
     assert not (h1.color == h0.color).all()
 
 
+def test_host_frame_survives_the_next_step():
+    """A host Frame owns its arrays: present() hands frame N-1's device
+    buffers back to the pool once its host copy is taken, and the next step
+    overwrites them; the host copy must not change (on the CPU, .numpy() of
+    the buffer would alias it)."""
+    p, cam, scene = _small()
+    r = Renderer(scene, p.config, "cpu")
+    r.present(r.step(scene, cam))
+    h0 = r.present(r.step(scene, p.animate(0.6)[0]))  # frame 0's buffers go to the pool
+    keep = h0.color.copy()
+    f2 = r.step(scene, p.animate(0.9)[0])  # written into frame 0's buffers
+    assert not (f2.color.numpy() == keep).all()
+    assert (h0.color == keep).all()
+
+
 # layout axes of the reference that are bit-identical by construction: the
 # port accepts their other values and renders the same frame
 LAYOUT_AXES = [("deferred_fetch", "fields"), ("record_split", 2), ("lod_fetch", "recompute"),
@@ -161,9 +180,35 @@ def test_layout_axes_render_the_same_frame(axis, value):
     assert (got.color == want.color).all() and (got.depth == want.depth).all()
 
 
+# options of earlier unported-option cases that the port runs now: Phong on
+# the textured terrain (the texture through uv slot 6), with a shadow map,
+# and blending with no transparent material
+PORTED_OPTIONS = {"blend": {"blend": True}, "mode": {"mode": 3},
+                  "shadow_map_size": {"mode": 3, "shadow_map_size": 64}}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_OPTIONS))
+def test_formerly_unported_options_render_the_reference_frame(name):
+    over = {"raster_path": "binned", **PORTED_OPTIONS[name]}
+    p, cam, scene = _small(**over)
+    r = Renderer(scene, p.config, "cpu")
+    got = r.readback(r.step(scene, cam))
+    rp = ref_presets.small_preset(ref_presets.config3_terrain(16, 16), 64, 48, **over)
+    rcam, mm = rp.animate(0.3, np)
+    rscene = rp.scene.replace(model_matrices=mm)
+    rr = RefRenderer(rscene, rp.config)
+    ref = rr.readback(rr.step(rscene, rcam))
+    assert ((got.depth == 1.0) == (ref.depth == 1.0)).all()
+    np.testing.assert_allclose(got.depth, ref.depth, rtol=0, atol=1e-6)
+    for k in ref.stats:
+        assert int(got.stats[k]) == int(ref.stats[k]), k
+    diff = np.abs(got.color.astype(int) - ref.color.astype(int)).max(axis=-1)
+    risk = shadow_flip_risk(rscene, rcam, rp.config)
+    assert (diff * ~risk).max() <= 1 and (diff * risk).max() <= 180
+
+
 @pytest.mark.parametrize("over", [
-    {"bin_zorder": True}, {"bin_pairs": 2}, {"z_earlyout": True},
-    {"blend": True}, {"mode": 3}, {"shadow_map_size": 64}, {"num_shards": 2},
+    {"bin_zorder": True}, {"bin_pairs": 2}, {"z_earlyout": True}, {"num_shards": 2},
     {"debug_checks": True},
     # the list kernel's prep refuses the occlusion early-out too
     {"backend": "pallas_smem", "z_earlyout": True},

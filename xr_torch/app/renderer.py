@@ -2,14 +2,17 @@
 step, strict readback and the ``Renderer`` that users drive.
 
 ``render_step`` runs the whole frame on the scene's device — camera
-matrices, geometry, binning, the visibility kernel, deferred shading and
-the u8 resolve — with shapes fixed by the config and no host read-back, so
-frames queue on the device. ``readback_frame`` is the Present()
-replacement: a device-to-host copy that raises on any overflow counter.
+matrices, the shadow map's depth-only pass from the light (Phong with
+``shadow_map_size``), geometry, binning, the visibility kernel, deferred
+shading, the blend pass (``blend``) and the u8 resolve — with shapes fixed
+by the config and no host read-back, so frames queue on the device.
+``readback_frame`` is the Present() replacement: a device-to-host copy that
+raises on any overflow counter.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -17,9 +20,11 @@ import torch
 from xr_torch import convert
 from xr_torch.core import math3d as m3
 from xr_torch.core import shade_math as sm
-from xr_torch.core.types import MODE_DEPTH_ONLY, Frame, RenderConfig, Scene
+from xr_torch.core.types import MODE_DEPTH_ONLY, MODE_PHONG, Frame, RenderConfig, Scene
 from xr_torch.pipeline.geometry import clip_capacity, geometry
+from xr_torch.pipeline.shadow import light_matrices_for_scene
 from xr_torch.raster import dispatch
+from xr_torch.shading import blend
 from xr_torch.shading.deferred import shade_deferred
 
 
@@ -28,8 +33,6 @@ def _check_config(config: RenderConfig) -> None:
     stages raise on their own: modes, raster paths, backends, z_earlyout,
     bin options)."""
     unported = {
-        "shadow_map_size": config.shadow_map_size > 0,
-        "blend": config.blend,
         "debug_checks": config.debug_checks,
         "num_shards": config.num_shards != 1,
     }
@@ -38,52 +41,125 @@ def _check_config(config: RenderConfig) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
-def _depth_pass(scene, view, proj, config: RenderConfig, capacity: int):
+def camera_matrices(scene: Scene, camera, config: RenderConfig):
+    """The frame's (camera with tensor leaves, view, proj) on the scene's
+    device."""
+    dev = scene.mesh.positions.device
+    cam = convert.camera_to_torch(camera, dev)
+    return (cam, *m3.camera_matrices(cam, config.width / config.height, dev))
+
+
+def visible_triangles(scene, view, proj, config: RenderConfig, capacity: int):
+    """Geometry, and the triangles visibility sees: under blending the
+    transparent records win no pixels and cast no shadows
+    (``xr/app/renderer.py:81-92``). Returns (tri, vis_tri)."""
     tri = geometry(scene, view, proj, config, capacity=capacity)
-    tid, zbuf, bin_of = dispatch.visibility(tri, config, capacity)
+    return tri, tri.replace(valid=blend.opaque_valid(tri, scene)) if config.blend else tri
+
+
+def depth_pass(scene, view, proj, config: RenderConfig, capacity: int):
+    """Geometry and visibility: (tri, tid, depth with 1.0 background,
+    bin_overflow)."""
+    tri, vis_tri = visible_triangles(scene, view, proj, config, capacity)
+    tid, zbuf, bin_of = dispatch.visibility(vis_tri, config, capacity)
     depth = torch.where(torch.isinf(zbuf), 1.0, zbuf)
     return tri, tid, depth, bin_of
 
 
-def render_step(scene: Scene, camera, config: RenderConfig,
-                capacity: Optional[int] = None, out=None) -> Frame:
-    """One frame on the scene's device. camera: a Camera whose leaves are
-    array-likes or tensors. out: optional preallocated (color_u8 (H,W,3),
-    depth_f32 (H,W)) pair the frame is written into."""
+def shadow_config(config: RenderConfig) -> RenderConfig:
+    """The shadow map's depth-only pass: shadow_map_size squared, seen from
+    the light."""
+    return dataclasses.replace(config, width=config.shadow_map_size,
+                               height=config.shadow_map_size, mode=MODE_DEPTH_ONLY,
+                               shadow_map_size=0)
+
+
+def has_shadow_pass(config: RenderConfig) -> bool:
+    return config.mode == MODE_PHONG and config.shadow_map_size > 0
+
+
+def shadow_pass(scene: Scene, config: RenderConfig, light_view, light_proj, capacity: int):
+    """The shadow map: the depth-only pass from the light at
+    shadow_map_size^2, with ``light_viewproj = proj @ view`` in fixed order
+    (``xr/app/renderer.py:140-154``). Returns ({"shadow_depth",
+    "light_viewproj"} for shading, bin_overflow)."""
+    if light_view is None or light_proj is None:
+        raise ValueError("a Phong frame with a shadow map needs light_view and light_proj")
+    dev = scene.mesh.positions.device
+    lv = convert.tensor(light_view, dev, torch.float32)
+    lp = convert.tensor(light_proj, dev, torch.float32)
+    _, _, shadow_depth, bin_of = depth_pass(scene, lv, lp, shadow_config(config), capacity)
+    return {"shadow_depth": shadow_depth, "light_viewproj": m3.matmul(lp, lv)}, bin_of
+
+
+def shade(tri, tid, scene: Scene, config: RenderConfig, eye, shadow: dict):
+    """Deferred shading of the visible records: linear rgb (H, W, 3)."""
+    return shade_deferred(tri, tid, scene, config, eye=eye, **shadow)
+
+
+def blend_pass(rgb, depth, tri, scene: Scene, config: RenderConfig, eye, shadow: dict):
+    """The transparent records composited over the shaded frame:
+    (rgb, blend_overflow)."""
+    return blend.composite_transparent(rgb, depth, tri, scene, config, eye, **shadow)
+
+
+def render_step(scene: Scene, camera, config: RenderConfig, light_view=None,
+                light_proj=None, capacity: Optional[int] = None, out=None) -> Frame:
+    """One frame on the scene's device (``xr/app/renderer.py:95-211``),
+    stage by stage: camera_matrices, shadow_pass, depth_pass, shade,
+    blend_pass, resolve. camera: a Camera whose leaves are array-likes or
+    tensors. light_view, light_proj: the shadow pass's (4, 4) matrices (see
+    xr_torch.pipeline.shadow), required for Phong with shadow_map_size > 0.
+    out: optional preallocated (color_u8 (H,W,3), depth_f32 (H,W)) pair the
+    frame is written into."""
     _check_config(config)
     dev = scene.mesh.positions.device
     cap = capacity or clip_capacity(scene.mesh.num_triangles, config)
-    view, proj = m3.camera_matrices(
-        convert.camera_to_torch(camera, dev), config.width / config.height, dev
-    )
-    tri, tid, depth, bin_of = _depth_pass(scene, view, proj, config, cap)
+    cam, view, proj = camera_matrices(scene, camera, config)
+
+    shadow, s_bin_of = {}, torch.zeros((), dtype=torch.int32, device=dev)
+    shaded = config.width * config.height
+    if has_shadow_pass(config):
+        shadow, s_bin_of = shadow_pass(scene, config, light_view, light_proj, cap)
+        shaded += config.shadow_map_size * config.shadow_map_size
+
+    tri, tid, depth, bin_of = depth_pass(scene, view, proj, config, cap)
     stats = {
         "tris_in": torch.tensor(scene.mesh.num_triangles, dtype=torch.int32, device=dev),
         "tris_setup": tri.count,
         "clip_overflow": tri.overflow,
-        "bin_overflow": bin_of,
-        "fragments_shaded": torch.tensor(
-            config.width * config.height, dtype=torch.int32, device=dev
-        ),
+        "bin_overflow": bin_of + s_bin_of,
+        "fragments_shaded": torch.tensor(shaded, dtype=torch.int32, device=dev),
         "covered_pixels": (depth < 1.0).sum(dtype=torch.int32),
     }
     if config.mode == MODE_DEPTH_ONLY:
         color = torch.zeros((config.height, config.width, 3), dtype=torch.uint8, device=dev)
     else:
-        color = sm.resolve_u8(shade_deferred(tri, tid, scene, config))
+        rgb = shade(tri, tid, scene, config, cam.eye, shadow)
+        if config.blend:
+            rgb, stats["blend_overflow"] = blend_pass(rgb, depth, tri, scene, config, cam.eye,
+                                                      shadow)
+        color = sm.resolve_u8(rgb)
     if out is not None:
         color = out[0].copy_(color)
         depth = out[1].copy_(depth)
     return Frame(color=color, depth=depth, stats=stats)
 
 
+def _host(t: torch.Tensor):
+    """A numpy copy that owns its memory: on the CPU, ``.numpy()`` would
+    alias the tensor, and Renderer hands its output buffers to later
+    frames."""
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+
+
 def readback_frame(frame: Frame, strict: bool = True) -> Frame:
     """Device-to-host copy. strict: raise if a fixed-capacity stage
     overflowed and dropped triangles."""
     out = Frame(
-        color=frame.color.cpu().numpy(),
-        depth=frame.depth.cpu().numpy(),
-        stats={k: v.cpu().numpy() for k, v in frame.stats.items()},
+        color=_host(frame.color),
+        depth=_host(frame.depth),
+        stats={k: _host(v) for k, v in frame.stats.items()},
     )
     if strict:
         for k in ("clip_overflow", "bin_overflow", "blend_overflow"):
@@ -128,7 +204,9 @@ class PresentMixin:
 class Renderer(PresentMixin):
     """Renders frames of one scene and config on an explicit device.
 
-    ``step(scene, camera)`` queues a frame; ``readback``/``present``/
+    The shadow pass's light matrices are fit to the scene given here, once,
+    on the host (``xr/app/renderer.py:324-325``); ``step`` takes an
+    override. ``step(scene, camera)`` queues a frame; ``readback``/``present``/
     ``flush`` bring it to the host. Output buffers are preallocated and
     reused: a frame's color/depth tensors go back to the pool once its host
     copy is taken, and a later step overwrites them — keep the host Frame.
@@ -141,6 +219,7 @@ class Renderer(PresentMixin):
         self.capacity = clip_capacity(scene.mesh.num_triangles, config)
         self._inflight = None
         self._pool = []
+        self._light = light_matrices_for_scene(scene) if has_shadow_pass(config) else None
 
     def _retire(self, frame: Frame) -> None:
         self._pool.append((frame.color, frame.depth))
@@ -154,9 +233,10 @@ class Renderer(PresentMixin):
             torch.empty((cfg.height, cfg.width), dtype=torch.float32, device=dev),
         )
 
-    def step(self, scene: Scene, camera) -> Frame:
+    def step(self, scene: Scene, camera, light_matrices=None) -> Frame:
         """Render one frame. scene: tensors on this renderer's device (see
-        xr_torch.convert.scene_to_torch); camera: array-likes or tensors."""
+        xr_torch.convert.scene_to_torch); camera: array-likes or tensors;
+        light_matrices: optional (view, proj) replacing the fitted ones."""
         dev = scene.mesh.positions.device
         if dev.type != self.device.type or (
             self.device.index is not None and dev.index != self.device.index
@@ -164,5 +244,7 @@ class Renderer(PresentMixin):
             raise ValueError(
                 f"scene is on {dev}, renderer on {self.device}"
             )
-        return render_step(scene, camera, self.config, capacity=self.capacity, out=self._out(dev))
+        lv, lp = light_matrices or self._light or (None, None)
+        return render_step(scene, camera, self.config, light_view=lv, light_proj=lp,
+                           capacity=self.capacity, out=self._out(dev))
 

@@ -1,5 +1,6 @@
 """Shading formulas of the port (port of ``xr/core/shade_math.py``):
-Lambert, vertex and flat-face lighting, the analytic mip LOD, trilinear sampling from the packed
+Lambert, vertex and flat-face lighting, Blinn-Phong, the shadow-map test,
+the analytic mip LOD, trilinear sampling from the packed
 quad pyramid (wide fetch, table mip math, repeat addressing) and the u8
 resolve. Float32 throughout; the reductions are written out so their order
 is the reference's.
@@ -10,6 +11,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from xr_torch.core import math3d as m3
 
 F32 = torch.float32
 
@@ -48,6 +51,73 @@ def shade_flat_face(face_normal, base_color, kd, lights, centroid=None):
     triangle with the geometric normal (point lights, when present, at the
     face centroid)."""
     return shade_vertex_lit(face_normal, base_color, kd, lights, world_pos=centroid)
+
+
+def _unit(v):
+    return m3.normalize(v, 1e-12)
+
+
+def shade_phong(world_pos, normal, view_pos, base_color, ka, kd, ks, shininess,
+                lights, shadow_factor=None):
+    """Blinn-Phong with every directional and point light
+    (``xr/core/shade_math.py:100-160``). Per-pixel args are (..., 3) and
+    (...,); shadow_factor (...,) multiplies directional light 0 only — the
+    one light the shadow pass is rendered from."""
+    n = normal
+    v = _unit(view_pos - world_pos)
+    out = ka[..., None] * lights.ambient * base_color
+
+    def one_light(l_vec, l_color, att, shadowed):
+        l = _unit(l_vec)
+        ndl = torch.clamp_min(m3.dot(n, l), 0.0)
+        h = _unit(l + v)
+        ndh = torch.clamp_min(m3.dot(n, h), 0.0)
+        spec = torch.where(ndl > 0.0, torch.pow(ndh, shininess), 0.0)
+        c = (kd[..., None] * base_color * ndl[..., None] + (ks * spec)[..., None]) * l_color
+        c = c * att[..., None]
+        if shadowed is not None:
+            c = c * shadowed[..., None]
+        return c
+
+    ones = torch.ones(world_pos.shape[:-1], dtype=F32, device=world_pos.device)
+    for i in range(lights.dir_dirs.shape[0]):
+        l_vec = (-lights.dir_dirs[i]).expand(world_pos.shape)
+        out = out + one_light(l_vec, lights.dir_colors[i], ones,
+                              shadow_factor if i == 0 else None)
+    for i in range(lights.pt_pos.shape[0]):
+        l_vec = lights.pt_pos[i] - world_pos
+        att = 1.0 / (1.0 + 0.05 * m3.dot(l_vec, l_vec))
+        out = out + one_light(l_vec, lights.pt_colors[i], att, None)
+    return out
+
+
+def shadow_test(shadow_depth, world_pos, light_viewproj, bias: float):
+    """1.0 where lit, 0.0 where in shadow: nearest-texel compare of the
+    world position's light-space depth (``xr/core/shade_math.py:443-496``).
+
+    shadow_depth (Hs, Ws) f32 from the depth-only pass; world_pos (..., 3).
+    The world->light transform is m3.matvec (fixed order, the same on every
+    device). NaN/inf sample coordinates are zeroed and clipped BEFORE the
+    float->int cast (a NaN->int cast differs between backends); the result
+    there is masked by `inside` either way. The reference's 8-texel row
+    fetch is a TPU gather layout that selects this same texel."""
+    hs, ws = shadow_depth.shape
+    p4 = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], dim=-1)
+    clip = m3.matvec(light_viewproj, p4)
+    w = torch.clamp_min(clip[..., 3], 1e-12)
+    ndc_x = clip[..., 0] / w
+    ndc_y = clip[..., 1] / w
+    z = clip[..., 2] / w
+    sx = torch.nan_to_num((ndc_x * 0.5 + 0.5) * ws, nan=0.0, posinf=0.0, neginf=0.0)
+    sy = torch.nan_to_num((0.5 - ndc_y * 0.5) * hs, nan=0.0, posinf=0.0, neginf=0.0)
+    ix = torch.clamp(torch.floor(sx), 0.0, float(ws - 1)).to(torch.int32)
+    iy = torch.clamp(torch.floor(sy), 0.0, float(hs - 1)).to(torch.int32)
+    d = shadow_depth.reshape(-1)[(iy * ws + ix).long()]
+    inside = (
+        (ndc_x >= -1.0) & (ndc_x <= 1.0) & (ndc_y >= -1.0) & (ndc_y <= 1.0)
+        & (z >= 0.0) & (z <= 1.0)
+    )
+    return torch.where(inside & (z - bias > d), 0.0, 1.0)
 
 
 def lod_from_derivs(dudx, dvdx, dudy, dvdy, base_size):

@@ -1,5 +1,14 @@
 """Hand-written CUDA kernels of the port: build, load, launch, count.
 
+Kernels (one launch wrapper each):
+  vis_stream    csrc/vis_stream.cu  streaming tile visibility
+  vis_lists     csrc/vis_lists.cu   per-tile list visibility
+  lane_gather   csrc/gather.cu      out[s, j] = tab[s, idx[j]]
+  quad_gather   csrc/gather.cu      out[n] = sum_s tab[s, idx[n]] (u32, wrapping)
+  quad_gather1  csrc/gather.cu      out[n] = tab[0, idx[n]]
+The two visibility kernels share their record loop (csrc/fold_records.cuh);
+the gathers carry the texture-fetch microbenchmarks (xr_torch/tools/).
+
 The sources under ``xr_torch/csrc/`` are compiled at first use with nvcc,
 one process per source started together, and linked into one shared
 library with a plain C interface (keyed by a hash of the sources, headers
@@ -25,7 +34,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = [CSRC / "vis_stream.cu", CSRC / "vis_lists.cu"]
+SOURCES = [CSRC / "vis_stream.cu", CSRC / "vis_lists.cu", CSRC / "gather.cu"]
 HEADERS = [CSRC / "fold_records.cuh"]
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "xr_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -33,7 +42,8 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 TILE_W = 128  # tile width the visibility kernels take (csrc/fold_records.cuh)
 
-launches = {"vis_stream": 0, "vis_lists": 0}
+launches = {"vis_stream": 0, "vis_lists": 0, "lane_gather": 0, "quad_gather": 0,
+            "quad_gather1": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -98,11 +108,16 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
+            p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.xr_vis_stream.argtypes = [p] * 9 + [i] * 8 + [p]
             lib.xr_vis_stream.restype = i
             lib.xr_vis_lists.argtypes = [p] * 7 + [i] * 9 + [p]
             lib.xr_vis_lists.restype = i
+            lib.xr_lane_gather.argtypes = [p, p, p, i, i, p]
+            lib.xr_quad_gather.argtypes = [p, p, p, i64, i, i, p]
+            lib.xr_quad_gather1.argtypes = [p, p, p, i64, i, p]
+            for fn in (lib.xr_lane_gather, lib.xr_quad_gather, lib.xr_quad_gather1):
+                fn.restype = i
             lib.xr_cuda_error_string.argtypes = [i]
             lib.xr_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -199,3 +214,60 @@ def vis_lists(rec, lists, counts, large_ids, large_count,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     return tid, z
+
+
+def _gather_table(tab, dtypes=(torch.int32,)):
+    _check("tab", tab, tab.dtype)
+    if tab.dtype not in dtypes:
+        raise ValueError(f"tab: dtype {tab.dtype}, expected one of {dtypes}")
+    if tab.ndim != 2 or min(tab.shape) <= 0:
+        raise ValueError(f"tab: shape {tuple(tab.shape)}, expected a non-empty (S, W)")
+
+
+def lane_gather(idx, tab):
+    """Launch the lane gather (csrc/gather.cu) on the current stream:
+    out[s, j] = tab[s, idx[0, j]] — 0 where idx[0, j] is outside [0, W).
+
+    idx (1, W) i32; tab (S, W) i32 (u32 bits) or f32, on one CUDA device.
+    Returns (S, W) of tab's dtype."""
+    _gather_table(tab, (torch.int32, torch.float32))
+    S, W = tab.shape
+    _check("idx", idx, torch.int32, (1, W), tab.device)
+    out = torch.empty_like(tab)
+    _launch("lane_gather", library().xr_lane_gather, tab.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), S, W, torch.cuda.current_stream(tab.device).cuda_stream)
+    return out
+
+
+def quad_gather(idx, tab):
+    """Launch the quad gather (csrc/gather.cu) on the current stream:
+    out[...] = sum over s of tab[s, idx[...]] in u32, wrapping — 0 where the
+    index is outside [0, PP).
+
+    idx (...) i32, any shape; tab (S, PP) i32 (u32 bits), on one CUDA
+    device. Returns idx's shape, i32 (u32 bits)."""
+    _gather_table(tab)
+    S, PP = tab.shape
+    _check("idx", idx, torch.int32, None, tab.device)
+    out = torch.empty_like(idx)
+    _launch("quad_gather", library().xr_quad_gather, tab.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), idx.numel(), S, PP,
+            torch.cuda.current_stream(tab.device).cuda_stream)
+    return out
+
+
+def quad_gather1(idx, tab):
+    """Launch the one-channel quad gather (csrc/gather.cu) on the current
+    stream: out[...] = tab[0, idx[...]] — 0 where the index is outside
+    [0, PP).
+
+    idx (...) i32, any shape; tab (S, PP) i32 (u32 bits), on one CUDA
+    device. Returns idx's shape, i32 (u32 bits)."""
+    _gather_table(tab)
+    _, PP = tab.shape
+    _check("idx", idx, torch.int32, None, tab.device)
+    out = torch.empty_like(idx)
+    _launch("quad_gather1", library().xr_quad_gather1, tab.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), idx.numel(), PP,
+            torch.cuda.current_stream(tab.device).cuda_stream)
+    return out

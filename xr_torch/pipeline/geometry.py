@@ -173,8 +173,6 @@ def _vertex_stage(scene: Scene, view, proj, config: RenderConfig):
     """Returns (clip_pos (V,4), attrs (V,A), face_rgb (T,3))."""
     mesh = scene.mesh
     mode = config.mode
-    if mode == MODE_PHONG:
-        raise NotImplementedError("mode 'phong' is not ported yet")
     dev = mesh.positions.device
     V = mesh.num_vertices
     mats = scene.model_matrices[mesh.transform_id.long()]  # (V,4,4)
@@ -196,8 +194,10 @@ def _vertex_stage(scene: Scene, view, proj, config: RenderConfig):
         centroid = ((w0 + w1) + w2) * (1.0 / 3.0) if has_pt else None
         face_rgb = sm.shade_flat_face(fn, mat.base_color[mid], mat.kd[mid], scene.lights,
                                       centroid=centroid)
-    elif mode in (MODE_GOURAUD, MODE_TEXTURED):
+    elif mode in (MODE_GOURAUD, MODE_TEXTURED, MODE_PHONG):
         n_world = m3.normalize(m3.matvec(mats[:, :3, :3], mesh.normals))
+        if mode == MODE_PHONG:  # world position, world normal, uv (A = 8)
+            return clip, torch.cat([world, n_world, mesh.uvs], dim=1), face_rgb
         vm = _vert_mat(mesh).long()
         lit = sm.shade_vertex_lit(
             n_world,

@@ -1,6 +1,7 @@
 """Presets of the port (port of ``xr/scene/presets.py``): config1 (flat
 cube), config2 (Gouraud icospheres), config3 (the headline textured
-terrain) and ``small_preset``. A preset bundles a host-side numpy Scene,
+terrain), config4 (Phong with a shadow map), config4b (config4 with two
+blended panes) and ``small_preset``. A preset bundles a host-side numpy Scene,
 ``animate(t)`` returning numpy (Camera, model matrices), and the
 RenderConfig; ``xr_torch.convert.scene_to_torch`` moves the scene onto a
 device. The host matrix builders give the bits of the reference's numpy
@@ -16,6 +17,7 @@ import numpy as np
 from xr_torch.core.types import (
     MODE_FLAT,
     MODE_GOURAUD,
+    MODE_PHONG,
     MODE_TEXTURED,
     Camera,
     Lights,
@@ -182,6 +184,104 @@ def config3_terrain(nx: int = 224, nz: int = 224) -> Preset:
     return Preset("config3_terrain", scene, animate, cfg)
 
 
+def config4_phong() -> Preset:
+    """Config 4 (``xr/scene/presets.py:174-249``): a 24x24 ground grid with
+    four cubes and four icospheres placed by seeded draws (rng 11, resampled
+    until no two overlap), four materials, two directional and two point
+    lights, Blinn-Phong with a 1024x1024 shadow map; 1920x1080,
+    bin_capacity 4096 — a two-pass frame."""
+    objs = [proc.grid_plane(24, 24, size=14.0, mat=0)]
+    tids = [0]
+    rng = np.random.default_rng(11)
+    placed: list = []
+    for i in range(8):
+        # the reference's draws, in its order: a position until it clears
+        # every placed one by 2.0, then (cubes) the rotation angle
+        while True:
+            x, z = rng.uniform(-4.5, 4.5, 2)
+            if all((x - qx) ** 2 + (z - qz) ** 2 >= 4.0 for qx, qz in placed):
+                break
+        placed.append((float(x), float(z)))
+        if i % 2 == 0:
+            s = proc.cube(1.0, mat=1 + (i % 3))
+            m = translation((x, 0.55, z)) @ rotation_y(float(rng.uniform(0, 3.14)))
+        else:
+            s = proc.icosphere(2, 0.65, mat=1 + (i % 3))
+            m = translation((x, 0.7, z))
+        objs.append(proc.transformed(s, m))
+        tids.append(0)
+    scene = Scene(
+        mesh=proc.merge_meshes(objs, tids),
+        materials=Material.table(
+            [
+                {"base_color": (0.75, 0.75, 0.78), "ks": 0.1, "shininess": 16.0},
+                {"base_color": (0.85, 0.25, 0.2), "ks": 0.6, "shininess": 48.0},
+                {"base_color": (0.2, 0.6, 0.85), "ks": 0.6, "shininess": 64.0},
+                {"base_color": (0.95, 0.8, 0.25), "ks": 0.8, "shininess": 96.0},
+            ]
+        ),
+        textures=None,
+        lights=Lights.make(
+            dir_dirs=[(-0.45, -0.75, -0.35), (0.6, -0.5, 0.4)],
+            dir_colors=[(0.95, 0.92, 0.85), (0.25, 0.28, 0.35)],
+            pt_pos=[(3.0, 3.0, -3.0), (-3.5, 2.5, 3.0)],
+            pt_colors=[(0.9, 0.55, 0.3), (0.3, 0.5, 0.9)],
+            ambient=(0.08, 0.08, 0.1),
+        ),
+        model_matrices=_identity_mats(),
+    )
+
+    def animate(t):
+        ang = np.asarray(0.8 + t * 0.2, np.float32)
+        eye = np.stack(
+            [11.0 * np.cos(ang), np.asarray(6.0, np.float32), 11.0 * np.sin(ang)]
+        )
+        cam = Camera(
+            eye=eye.astype(np.float32),
+            target=np.asarray((0.0, 0.5, 0.0), np.float32),
+            up=np.asarray((0.0, 1.0, 0.0), np.float32),
+            fov_y=np.asarray(np.deg2rad(50.0), np.float32),
+            near=np.asarray(0.2, np.float32),
+            far=np.asarray(80.0, np.float32),
+        )
+        return cam, _identity_mats()
+
+    cfg = RenderConfig(width=1920, height=1080, mode=MODE_PHONG, shadow_map_size=1024,
+                       bin_capacity=4096)
+    return Preset("config4_phong", scene, animate, cfg)
+
+
+def config4_blend() -> Preset:
+    """Config 4b (``xr/scene/presets.py:252-289``): config4 plus two
+    overlapping transparent panes above it (alpha 0.55 and 0.4), appended
+    back to front (lower pane first) — source order is composite order;
+    blend on, blend_capacity 32."""
+    base = config4_phong()
+    pane_lo = proc.transformed(proc.grid_plane(1, 1, size=7.0, mat=4),
+                               translation((0.5, 1.6, -0.3)))
+    pane_hi = proc.transformed(proc.grid_plane(1, 1, size=5.0, mat=5),
+                               translation((-0.6, 2.6, 0.4)))
+    mesh = proc.merge_meshes([base.scene.mesh, pane_lo, pane_hi], [0, 0, 0])
+    mats = base.scene.materials
+    rows = [
+        {
+            "base_color": tuple(np.asarray(mats.base_color[i])),
+            "ka": float(mats.ka[i]),
+            "kd": float(mats.kd[i]),
+            "ks": float(mats.ks[i]),
+            "shininess": float(mats.shininess[i]),
+            "tex_id": int(mats.tex_id[i]),
+        }
+        for i in range(mats.base_color.shape[0])
+    ] + [
+        {"base_color": (0.9, 0.3, 0.25), "ks": 0.3, "shininess": 32.0, "alpha": 0.55},
+        {"base_color": (0.25, 0.45, 0.95), "ks": 0.3, "shininess": 32.0, "alpha": 0.4},
+    ]
+    scene = base.scene.replace(mesh=mesh, materials=Material.table(rows))
+    cfg = dataclasses.replace(base.config, blend=True, blend_capacity=32)
+    return Preset("config4_blend", scene, base.animate, cfg)
+
+
 def small_preset(preset: Preset, width=160, height=120, **overrides) -> Preset:
     """Shrink a preset's framebuffer (tests, goldens)."""
     cfg = dataclasses.replace(preset.config, width=width, height=height, **overrides)
@@ -192,4 +292,6 @@ ALL_PRESETS = {
     "config1": config1_cube,
     "config2": config2_icospheres,
     "config3": config3_terrain,
+    "config4": config4_phong,
+    "config4b": config4_blend,
 }

@@ -1,6 +1,6 @@
-"""Deferred shading of the port (port of the flat, Gouraud and textured
-paths of ``xr/shading/deferred.py``): every pixel is shaded exactly once
-from the winning triangle's record.
+"""Deferred shading of the port (port of the flat, Gouraud, textured and
+Phong paths of ``xr/shading/deferred.py``): every pixel is shaded exactly
+once from the winning triangle's record.
 
 Flat shading reads the triangle's face color. Otherwise one (C, K) f32
 record table is gathered per pixel by triangle id: xs(3) ys(3) mat_id(1) as
@@ -15,12 +15,13 @@ from __future__ import annotations
 import torch
 
 from xr_torch.core import fixedpoint as fp
+from xr_torch.core import math3d as m3
 from xr_torch.core import shade_math as sm
 from xr_torch.core.types import (
     MODE_DEPTH_ONLY,
     MODE_FLAT,
     MODE_GOURAUD,
-    MODE_NAMES,
+    MODE_PHONG,
     MODE_TEXTURED,
     RenderConfig,
     Scene,
@@ -70,8 +71,9 @@ def _pack_records(tri, A: int, config: RenderConfig, uv_slot):
 
 def _sample_texture(scene, u, v, lod6, e0, e1, e2, denom, mat_id):
     """Trilinear fetch with the analytic per-pixel LOD: u = Nu/D, so
-    du/dx = (dNu/dx - u * dD/dx) / D with D = denom * area2. Returns (N, 3);
-    white where the material has no texture."""
+    du/dx = (dNu/dx - u * dD/dx) / D with D = denom * area2. lod6 and mat_id
+    broadcast against u (per pixel here, per record in the blend pass).
+    Returns u's shape + (3,); white where the material has no texture."""
     pyr = scene.textures
     area2 = (e0 + e1 + e2).to(F32)
     D = denom * area2
@@ -87,13 +89,14 @@ def _sample_texture(scene, u, v, lod6, e0, e1, e2, denom, mat_id):
     return torch.where(has_tex[..., None], texc, 1.0)
 
 
-def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig) -> torch.Tensor:
+def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig,
+                   eye=None, shadow_depth=None, light_viewproj=None) -> torch.Tensor:
     """Shade a visibility buffer tid (H, W) i32 (BG_TRI_ID = background)
-    into (H, W, 3) f32 linear color."""
+    into (H, W, 3) f32 linear color. Phong takes the camera's eye (3,) and,
+    when the frame has a shadow pass, its depth map (Hs, Ws) and the
+    light's view-projection (4, 4)."""
     if config.mode == MODE_DEPTH_ONLY:
         raise ValueError("depth-only pass has no shading")
-    if config.mode not in (MODE_FLAT, MODE_GOURAUD, MODE_TEXTURED):
-        raise NotImplementedError(f"mode {MODE_NAMES[config.mode]!r} shading is not ported yet")
     H, W = tid.shape
     tid = tid.reshape(-1)
     bg = tid == BG_TRI_ID
@@ -111,8 +114,9 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig) -
     py = py.reshape(-1)
     A = config.attr_width
     pyr = scene.textures
-    textured = config.mode == MODE_TEXTURED and pyr is not None and pyr.num_levels > 0
-    uv_slot = 0 if textured else None
+    uv_slot = None
+    if pyr is not None and pyr.num_levels > 0:
+        uv_slot = {MODE_TEXTURED: 0, MODE_PHONG: 6}.get(config.mode)
     table, lod_base = _pack_records(tri, A, config, uv_slot)
     rec = table[t]  # (N, K)
     xs = rec[:, 0:3].to(I32)
@@ -137,11 +141,29 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig) -
     if config.mode == MODE_GOURAUD:
         return finish(torch.stack([attr(0), attr(1), attr(2)], dim=-1))
 
-    u, v = attr(0), attr(1)
-    lit = torch.stack([attr(2), attr(3), attr(4)], dim=-1)
-    if uv_slot is None:
-        texc = torch.ones_like(lit)
-    else:
+    def texture(u, v):
+        if uv_slot is None:
+            return torch.ones(u.shape + (3,), dtype=F32, device=u.device)
         lod6 = tuple(rec[:, lod_base + i] for i in range(6))
-        texc = _sample_texture(scene, u, v, lod6, e0, e1, e2, denom, mat_id)
-    return finish(texc * lit)
+        return _sample_texture(scene, u, v, lod6, e0, e1, e2, denom, mat_id)
+
+    if config.mode == MODE_TEXTURED:
+        lit = torch.stack([attr(2), attr(3), attr(4)], dim=-1)
+        return finish(texture(attr(0), attr(1)) * lit)
+
+    # Phong (xr/shading/deferred.py:275-314); the reference gathers the
+    # material table one channel at a time (a TPU layout choice), a row
+    # gather here gives the same values
+    world = torch.stack([attr(0), attr(1), attr(2)], dim=-1)
+    normal = m3.normalize(torch.stack([attr(3), attr(4), attr(5)], dim=-1), 1e-12)
+    mats = scene.materials
+    mid = mat_id.long()
+    base = mats.base_color[mid] * texture(attr(6), attr(7))
+    shadow = None
+    if shadow_depth is not None and light_viewproj is not None:
+        shadow = sm.shadow_test(shadow_depth, world, light_viewproj, config.shadow_bias)
+    eye = torch.as_tensor(eye, dtype=F32, device=tid.device)
+    color = sm.shade_phong(world, normal, eye, base, mats.ka[mid], mats.kd[mid],
+                           mats.ks[mid], mats.shininess[mid], scene.lights,
+                           shadow_factor=shadow)
+    return finish(color)
