@@ -18,7 +18,10 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      1024x1024 from the light, depth only, and the 1920x1080 camera pass,
      64x128 tiles) and on config4b's camera pass (the transparent panes
      masked out); times both kernels and their plain versions on the full
-     frames, beside the bound of each launch
+     frames, beside the bound of each launch (the bytes and the integer
+     operations no exact design avoids, _vis_work), and holds the output of
+     the launch after the 50 timed ones against the plain version and
+     against the first launch's
   4. gathers: the lane gather (lane_gather, P1) at the probe's four shapes
      and the 16-channel and one-channel quad gathers (quad_gather P2,
      quad_gather1 P3) at the full 2,073,600-pixel shape, bit-exact against
@@ -88,19 +91,26 @@ SOURCES = {
 KERNELS = tuple(SOURCES)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 INT32_LANES = 132 * 64  # SMs x INT32 lanes per SM
-BBOX_OPS = 4  # integer compares of the per-pixel bbox reject every test pays
+EDGE_OPS = 6  # per pixel of a record's bbox: three edge functions of two multiply-adds
+DECODE_OPS = 8  # per (tile, record) pair: unpacking the bbox and the tie offsets
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms, by CUDA events around reps calls."""
+def cuda_ms(fn, reps: int, warmup: int = 2, spin_cycles: int = 0) -> float:
+    """Mean device time of fn() in ms, by CUDA events around reps calls.
+    With spin_cycles the device first spins that long, so that the host
+    enqueues the calls ahead of it and the time between the events is the
+    device's own, not the pace at which the host launches: a launch of the
+    visibility wrappers costs the host more than the kernels take."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if spin_cycles:
+        torch.cuda._sleep(spin_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -123,6 +133,15 @@ def _preset(name: str, full: bool = False):
         n = 224 if full else 48
         return presets.config3_terrain(n, n)
     return presets.ALL_PRESETS[name]()
+
+
+def _tie_preset(p):
+    """The preset with its mesh merged with a copy of itself: every covered
+    pixel ties on z between a triangle and its copy."""
+    from xr_torch.scene import procedural as proc
+
+    mesh = proc.with_vert_mat(proc.merge_meshes([p.scene.mesh, p.scene.mesh]))
+    return p._replace(scene=p.scene.replace(mesh=mesh))
 
 
 def _kernel_fns(kernel: str):
@@ -183,14 +202,15 @@ def _setup(dev, preset, width, height, t, **over):
 
 
 def _vis_work(kernel, inp, cfg):
-    """(pixel x record tests, bytes) of one visibility launch as its walk
-    does them. A CTA owns a 32-row slab of a tile and tests every record it
-    folds against each of its pixels: the tile's segment (stream) or list
-    (lists), and the large bucket for every tile that runs. A record goes
-    past the whole-record bbox reject of a slab (the large bucket always,
-    the tile's own records where the tile has several slabs) only if its
-    bbox meets the slab. Bytes: the record table, the ids and per-tile
-    words read once, and the (tid, z) frame written once."""
+    """(pairs, bbox pixels, bytes) of one visibility launch, whatever
+    implements it. Pairs: every (tile, record) the launch folds, the tile's
+    segment inside the budget (stream) or its list (lists) and the large
+    bucket for every tile that runs. Bbox pixels: for each pair the pixels
+    of the record's bbox that lie inside that tile and the frame; no exact
+    design evaluates the three edge functions on fewer. Bytes: the record
+    rows that some tile references, the ids and the per-tile words, each
+    read once, and the (tid, z) frame written once; a design's scratch is
+    not counted."""
     H, W, th, sub = cfg.height, cfg.width, cfg.tile_h, cfg.subpixel
     dev = inp.rec.device
     ntx, nty = -(-W // 128), -(-H // th)
@@ -211,26 +231,21 @@ def _vis_work(kernel, inp, cfg):
     L = int(inp.large_count)
     rt = ran.nonzero().flatten()
     tile = torch.cat([tile, rt.repeat_interleave(L)])
-    own = torch.cat([torch.ones_like(ids, dtype=torch.bool),
-                     torch.zeros(rt.numel() * L, dtype=torch.bool, device=dev)])
     ids = torch.cat([ids, inp.large_ids[:L].long().repeat(rt.numel())])
     bxp, byp = inp.rec[ids, 17].long(), inp.rec[ids, 16].long()
     bx0, bx1 = (bxp & 0xFFFF) - 32768, ((bxp >> 16) & 0xFFFF) - 32768
     by0, by1 = (byp & 0xFFFF) - 32768, ((byp >> 16) & 0xFFFF) - 32768
     half = sub // 2
-    col0 = (tile % ntx) * 128
-    px0, px1 = col0 * sub + half, (col0 + 127) * sub + half
-    nslab = -(-th // 32)
-    tests = 0
-    for s in range(nslab):
-        rows = min(32, th - 32 * s)
-        row0 = (tile // ntx) * th + 32 * s
-        py0, py1 = row0 * sub + half, (row0 + rows - 1) * sub + half
-        meets = (bx1 >= px0) & (bx0 <= px1) & (by1 >= py0) & (by0 <= py1)
-        folded = meets | own if nslab == 1 else meets
-        tests += int(folded.sum()) * rows * 128
-    nbytes = inp.rec.numel() * 4 + (int(counts.sum()) + L + words) * 4 + H * W * 8
-    return tests, nbytes
+    # pixel ranges of the bbox (centers at c * sub + half), cut to the tile and the frame
+    col0, row0 = (tile % ntx) * 128, (tile // ntx) * th
+    x0 = torch.maximum(-(-(bx0 - half) // sub), col0)
+    x1 = torch.minimum((bx1 - half) // sub, torch.clamp_max(col0 + 127, W - 1))
+    y0 = torch.maximum(-(-(by0 - half) // sub), row0)
+    y1 = torch.minimum((by1 - half) // sub, torch.clamp_max(row0 + th - 1, H - 1))
+    pixels = int((torch.clamp_min(x1 - x0 + 1, 0) * torch.clamp_min(y1 - y0 + 1, 0)).sum())
+    nbytes = (int(torch.unique(ids).numel()) * inp.rec.shape[1] * 4
+              + (ids.numel() + words) * 4 + H * W * 8)
+    return ids.numel(), pixels, nbytes
 
 
 def _view_proj(dev, cam, cfg):
@@ -238,6 +253,16 @@ def _view_proj(dev, cam, cfg):
     from xr_torch.core import math3d as m3
 
     return m3.camera_matrices(convert.camera_to_torch(cam, dev), cfg.width / cfg.height, dev)
+
+
+def _same_vis(label, what, got, want) -> None:
+    """Raise unless the (tid, z) pairs hold the same bits."""
+    torch.cuda.synchronize()
+    for field, a, b in (("tid", got[0], want[0]),
+                        ("z bits", got[1].view(torch.int32), want[1].view(torch.int32))):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{label}: {field} differ from {what} at {int((a != b).sum())} pixels")
 
 
 def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clock_hz=None):
@@ -255,28 +280,34 @@ def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clo
     tp, zp = plain(inp, cfg)
     torch.cuda.synchronize()
     label = f"{kernel} [{name}] {cfg.width}x{cfg.height} tiles {cfg.tile_h}x{cfg.tile_w}"
-    if not torch.equal(tk, tp):
-        n = int((tk != tp).sum())
-        raise AssertionError(f"{label}: tid differs from the plain version at {n} pixels")
-    if not torch.equal(zk.view(torch.int32), zp.view(torch.int32)):
-        n = int((zk.view(torch.int32) != zp.view(torch.int32)).sum())
-        raise AssertionError(f"{label}: z bits differ from the plain version at {n} pixels")
+    _same_vis(label, "the plain version", (tk, zk), (tp, zp))
+    # the merge order varies from launch to launch; the output must not
+    _same_vis(label, "the first launch", launch(inp, cfg), (tk, zk))
     fin = torch.isfinite(zp)
     err = float((zk[fin] - zp[fin]).abs().max()) if bool(fin.any()) else 0.0
     bg = int((tk == 2**31 - 1).sum())
     line = (f"kernel vs plain {label}: tid and z bit-exact, "
             f"large_count={int(inp.large_count)} dropped={int(inp.dropped)} "
             f"bg_pixels={bg} records={int(tri.count)}")
+    chunks = inp.item_start[1:] - inp.item_start[:-1]
     out = {"max_abs_err": err, "large_count": int(inp.large_count),
-           "dropped": int(inp.dropped), "bg": bg}
+           "dropped": int(inp.dropped), "bg": bg, "max_chunks": int(chunks.max()),
+           "one_chunk_tiles": int((chunks == 1).sum())}
+    line += f" chunks={int(chunks.sum())} (most in a tile {out['max_chunks']})"
     if time_it:
-        out["ms"] = cuda_ms(lambda: launch(inp, cfg), reps=50)
+        # 50 launches queued behind 20 ms of spinning: device time
+        out["ms"] = cuda_ms(lambda: launch(inp, cfg), reps=50, spin_cycles=int(0.02 * clock_hz))
+        # after 50 launches in a row the scratch must still be the kernel's own
+        _same_vis(label, "the plain version, after the timed launches", launch(inp, cfg),
+                  (tp, zp))
         out["plain_ms"] = cuda_ms(lambda: plain(inp, cfg), reps=5, warmup=1)
-        tests, nbytes = _vis_work(kernel, inp, cfg)
-        out.update(_bound(nbytes, tests * BBOX_OPS, INT32_LANES * clock_hz))
+        pairs, pixels, nbytes = _vis_work(kernel, inp, cfg)
+        out.update(_bound(nbytes, pixels * EDGE_OPS + pairs * DECODE_OPS,
+                          INT32_LANES * clock_hz))
+        out.update(pairs=pairs, bbox_pixels=pixels, bytes=nbytes)
         line += (f"; kernel {out['ms']!r} ms, plain {out['plain_ms']!r} ms, bound "
-                 f"{out['bound_ms']!r} ms by {out['bound_by']} ({tests} pixel x record "
-                 f"tests, {nbytes} bytes)")
+                 f"{out['bound_ms']!r} ms by {out['bound_by']} ({pairs} (tile, record) "
+                 f"pairs, {pixels} bbox pixels, {nbytes} bytes)")
     log(line)
     return out
 
@@ -307,6 +338,24 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
                 raise AssertionError("stream_overflow: expected dropped records and BG tiles")
             if name == "lists_overflow" and r["dropped"] <= 0:
                 raise AssertionError("lists_overflow: expected dropped list entries")
+
+    # a tile's walk cut into three or more chunks, merged through the packed
+    # key, with the depth test and in painter's order: config3 as it is (the
+    # split case; some tiles keep one chunk and store directly), and with
+    # the terrain doubled, so that every covered pixel ties on z between a
+    # triangle and its copy, also across chunks
+    tie = _tie_preset(_preset("config3"))
+    for label, (pp, pcam, pscene) in (
+            ("split", (p, cam, scene)),
+            ("z_tie", _setup(dev, tie, m["width"], m["height"], m["t"], **m["overrides"]))):
+        for kernel in ("vis_stream", "vis_lists"):
+            for depth_test in (True, False):
+                r = run(kernel, pp, {"depth_test": depth_test}, pscene, pcam,
+                        f"{label} {'depth' if depth_test else 'painter'}")
+                if r["max_chunks"] < 3 or r["dropped"]:
+                    raise AssertionError(f"{kernel} {label}: {r}")
+                if label == "split" and not r["one_chunk_tiles"]:
+                    raise AssertionError(f"{kernel} split: no tile stores directly: {r}")
 
     # config2 at golden size: 128x128 tiles (4 slabs a tile); the list
     # kernel is called directly, since dispatch streams at bin_capacity 8192
@@ -346,7 +395,7 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
                 if r["dropped"] or r["bg"] == cfg.width * cfg.height:
                     raise AssertionError(f"{label}: {r}")
 
-    fields = ("ms", "plain_ms", "bound_ms", "bound_by")
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "pairs", "bbox_pixels", "bytes")
     return {
         "vis_stream": {"max_abs_err": max(errs["vis_stream"]), "library_ms": None,
                        **{k: out[("vis_stream", "config3")][k] for k in fields}},

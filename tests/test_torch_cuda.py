@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
 identical tid and z bits and equal dropped counts on the same prepped
-inputs — the stream kernel (B1) at 8-, 32-, 64- and 128-row tiles, the list
-kernel (B2) in the list cases, both on config4's depth-only shadow pass —
+inputs — the stream kernel (B1) and the list kernel (B2) at 8-, 32-, 64-
+and 128-row tiles and in their cases, both on config4's depth-only shadow
+pass, on a scene where every covered pixel ties on z, on tiles whose walk
+is cut into three or more work items, and launched repeatedly —
 the gather kernels (P1-P3) bit for bit, and frames through Renderer on CUDA
 equal to the frames on the CPU (config4/4b: shadow edges may flip, so at
 most max(2, 0.1 %) pixels past 1 LSB, the golden rule). These
@@ -22,6 +24,7 @@ from xr_torch.pipeline.geometry import geometry
 from xr_torch.pipeline.shadow import light_matrices_for_scene
 from xr_torch.raster import smem, stream
 from xr_torch.scene import presets
+from xr_torch.scene import procedural as proc
 from xr_torch.tools import gather
 
 pytestmark = pytest.mark.cuda
@@ -87,24 +90,84 @@ def test_kernel_matches_plain(cuda, case):
         assert int(inp.dropped) > 0
 
 
-@pytest.mark.parametrize("tile_h", [8, 64, 128])
-def test_stream_kernel_any_tile_height(cuda, tile_h):
-    """Tiles of more than 32 rows run as several slabs (config2's 128x128)."""
-    for preset in (presets.config3_terrain(48, 48), presets.config2_icospheres()):
-        p, cam, scene = _scene(cuda, 0.4, preset)
-        _stream_matches_plain(cuda, p, cam, scene, dataclasses.replace(p.config, tile_h=tile_h))
-
-
-@pytest.mark.parametrize("case", sorted(LIST_CASES))
-def test_list_kernel_matches_plain(cuda, case):
-    p, cam, scene = _scene(cuda)
-    cfg = dataclasses.replace(p.config, **LIST_CASES[case])
+def _lists_match_plain(cuda, p, cam, scene, cfg):
     inp = smem.prepare_lists(_tri(cuda, p, cam, scene, cfg), cfg)
     n0 = kernels.launches["vis_lists"]
     out = smem.vis_lists(inp, cfg)
     torch.cuda.synchronize()
     assert kernels.launches["vis_lists"] == n0 + 1
     _same(out, smem.vis_lists_plain(inp, cfg))
+    return inp
+
+
+MATCHES_PLAIN = {"vis_stream": _stream_matches_plain, "vis_lists": _lists_match_plain}
+
+
+def _chunks(inp):
+    """Chunks of each tile's walk, as the prep lists them for the kernel."""
+    return (inp.item_start[1:] - inp.item_start[:-1]).cpu()
+
+
+@pytest.mark.parametrize("tile_h", [8, 64, 128])
+@pytest.mark.parametrize("kernel", sorted(MATCHES_PLAIN))
+def test_stream_kernel_any_tile_height(cuda, kernel, tile_h):
+    """Tiles of more than 32 rows run as several slabs (config2's 128x128),
+    through the stream kernel and the list kernel."""
+    for preset in (presets.config3_terrain(48, 48), presets.config2_icospheres()):
+        p, cam, scene = _scene(cuda, 0.4, preset)
+        MATCHES_PLAIN[kernel](cuda, p, cam, scene, dataclasses.replace(p.config, tile_h=tile_h))
+
+
+def _tie_preset():
+    """config3's terrain merged with a copy of itself: every covered pixel
+    ties on z between a triangle and its copy, and the lower id must win."""
+    p = presets.config3_terrain(48, 48)
+    mesh = proc.with_vert_mat(proc.merge_meshes([p.scene.mesh, p.scene.mesh]))
+    return p._replace(scene=p.scene.replace(mesh=mesh))
+
+
+@pytest.mark.parametrize("depth_test", [True, False], ids=["depth", "painter"])
+@pytest.mark.parametrize("kernel", sorted(MATCHES_PLAIN))
+def test_kernels_on_z_ties_across_items(cuda, kernel, depth_test):
+    p, cam, scene = _scene(cuda, 0.3, _tie_preset())
+    cfg = dataclasses.replace(p.config, depth_test=depth_test)
+    inp = MATCHES_PLAIN[kernel](cuda, p, cam, scene, cfg)
+    assert int(_chunks(inp).max()) >= 3 and int(inp.dropped) == 0
+
+
+@pytest.mark.parametrize("depth_test", [True, False], ids=["depth", "painter"])
+@pytest.mark.parametrize("kernel", sorted(MATCHES_PLAIN))
+def test_kernels_split_a_tile_into_items(cuda, kernel, depth_test):
+    """config3 at golden size: the heaviest tile's walk is three or more
+    chunks, merged through the packed key."""
+    p, cam, scene = _scene(cuda)
+    cfg = dataclasses.replace(p.config, depth_test=depth_test)
+    inp = MATCHES_PLAIN[kernel](cuda, p, cam, scene, cfg)
+    assert int(_chunks(inp).max()) >= 3 and int((_chunks(inp) == 1).sum()) >= 1
+
+
+@pytest.mark.parametrize("kernel", sorted(MATCHES_PLAIN))
+def test_repeated_launches_give_equal_bits(cuda, kernel):
+    """The merge order varies from launch to launch; the output does not,
+    and the scratch of one launch leaves nothing to the next."""
+    p, cam, scene = _scene(cuda, 0.3, _tie_preset())
+    tri = _tri(cuda, p, cam, scene, p.config)
+    if kernel == "vis_stream":
+        inp, launch = stream.prepare(tri, p.config), stream.vis_stream
+    else:
+        inp, launch = smem.prepare_lists(tri, p.config), smem.vis_lists
+    first = launch(inp, p.config)
+    for _ in range(60):
+        last = launch(inp, p.config)
+    torch.cuda.synchronize()
+    _same(first, last)
+
+
+@pytest.mark.parametrize("case", sorted(LIST_CASES))
+def test_list_kernel_matches_plain(cuda, case):
+    p, cam, scene = _scene(cuda)
+    inp = _lists_match_plain(cuda, p, cam, scene,
+                             dataclasses.replace(p.config, **LIST_CASES[case]))
     if case == "large_bucket":
         assert int(inp.large_count) > 0
     if case == "lists_overflow":

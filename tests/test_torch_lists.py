@@ -4,7 +4,12 @@ version (``smem``, the ``pallas_smem`` backend) against the Pallas kernel in
 interpret mode, and the portable paths (``lists``: brute force and the
 ``jnp`` backend) against ``jnp_backend``. Ids, lists, counts and dropped
 must be exact; depth within 1e-6, since XLA may contract the reference's
-depth sum where the port rounds every product (F3 in ROADMAP.md)."""
+depth sum where the port rounds every product (F3 in ROADMAP.md).
+
+The CUDA list kernel cuts a tile's list into work items and merges their
+partial results through a packed 64-bit (z, id) key; that algorithm in plain
+PyTorch, merged in a shuffled order, is held here against the in-order plain
+version bit for bit, also on a scene where every covered pixel ties on z."""
 
 import dataclasses
 
@@ -19,8 +24,9 @@ from xr.raster import dispatch as ref_dispatch
 from xr.raster import jnp_backend as ref_jb
 from xr.raster import pallas_smem as ref_smem
 from xr.scene import presets as ref_presets
+from xr.scene import procedural as ref_proc
 from xr_torch import convert, kernels
-from xr_torch.raster import binning, dispatch, lists, smem
+from xr_torch.raster import binning, dispatch, lists, records, smem
 
 # the suite runs several worker processes on shared cores: one torch
 # thread each keeps them from oversubscribing the CPU
@@ -154,3 +160,63 @@ def test_smem_budget_rule_matches_reference(preset):
         c2 = convert.config_from(fn().config)
         assert dispatch._smem_bytes(c2) == 368_640 <= dispatch.SMEM_BUDGET
         assert dispatch._smem_bytes(c2.replace(bin_capacity=8192)) == 1_253_376
+
+
+ITEM_CASES = {
+    "as_is": {},
+    "painter": {"depth_test": False},
+    "large_bucket": {"medium_capacity": 0, "tile_h": 8},
+    # lists far too short: each tile folds the first 64 ids of its list
+    "lists_overflow": {"bin_capacity": 64},
+    "z_tie": {},
+    "z_tie_painter": {"depth_test": False},
+}
+
+
+@pytest.fixture(scope="module")
+def terrain_tris():
+    """config3 at golden size (a tile's list is up to 1,022 ids long), as it
+    is and with the terrain merged with a copy of itself, so that every
+    covered pixel ties on z between a triangle and its copy."""
+    p = ref_presets.config3_terrain(48, 48)
+    mesh = ref_proc.with_vert_mat(ref_proc.merge_meshes([p.scene.mesh, p.scene.mesh]))
+    tie = p._replace(scene=p.scene.replace(mesh=mesh))
+    return {False: _ref_tri(p, 192, 108, 0.3, bin_capacity=8192),
+            True: _ref_tri(tie, 192, 108, 0.3, bin_capacity=8192)}
+
+
+@pytest.mark.parametrize("case", sorted(ITEM_CASES))
+def test_list_items_merged_by_key_match_plain(terrain_tris, case):
+    """Every tile's list cut into items of ITEM_RECORDS ids, each folded on
+    its own and merged through pack_key in a shuffled order, against the
+    plain version in order: equal bits."""
+    rtri, base = terrain_tris[case.startswith("z_tie")]
+    cfg = convert.config_from(dataclasses.replace(base, **ITEM_CASES[case]))
+    inp = smem.prepare_lists(convert.tribuf_to_torch(rtri, "cpu"), cfg)
+    t, z = smem.vis_lists_plain(inp, cfg)
+    ntiles, cap = inp.lists.shape
+    ti, zi, nchunks = records.fold_plain_items(
+        inp.rec, inp.lists.reshape(-1), torch.arange(ntiles, dtype=torch.int32) * cap,
+        inp.counts, inp.large_ids, inp.large_count, cfg, seed=len(case))
+    assert torch.equal(ti, t)
+    assert torch.equal(zi.view(torch.int32), z.view(torch.int32))
+    K = records.ITEM_RECORDS
+    chunks = inp.item_start[1:] - inp.item_start[:-1]
+    want = (-(-int(inp.large_count) // K) + -(-inp.counts // K)).clamp_min(1)
+    assert torch.equal(chunks, want) and int(chunks.max()) == nchunks
+    assert int(inp.item_start[-1]) <= inp.item_tile.shape[0]
+    if case == "lists_overflow":
+        assert int(inp.dropped) > 0 and nchunks == 1
+    elif case == "large_bucket":
+        assert int(inp.large_count) > 0
+    else:
+        assert nchunks >= 3 and int(inp.dropped) == 0
+
+
+def test_smem_z_tie_matches_pallas_interpret(terrain_tris):
+    """Every covered pixel ties on z: the reference's list kernel and the
+    port pick the same (lower) id."""
+    rtri, cfg = terrain_tris[True]
+    want = ref_smem.visibility_binned(rtri, cfg, interpret=True)
+    got = smem.visibility_binned(convert.tribuf_to_torch(rtri, "cpu"), convert.config_from(cfg))
+    assert _check_vis(got, want) == 0

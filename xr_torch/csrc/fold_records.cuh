@@ -1,5 +1,7 @@
-// The record loop shared by the visibility kernels of the port: one device
-// function, included by vis_stream.cu (B1) and vis_lists.cu (B2).
+// The record fold shared by the visibility kernels of the port: the work
+// items, the per-warp reject, the pixel loop and the merge by packed key.
+// Included by vis_stream.cu (B1) and vis_lists.cu (B2), which differ only in
+// where a tile's ids lie (a `Walk`).
 //
 // Replaces xr/raster/pallas_smem.py `_raster_scalar_records` with its x_test
 // and depth_test options. Coverage is exact int32 plane-form edges
@@ -10,12 +12,52 @@
 // _rn intrinsics), kept within [0, 1]; the winner is the strict (z, id)
 // lexicographic minimum, or the highest id without a depth test.
 //
-// Work split: one CTA of 256 threads owns a slab of at most 32 rows of one
-// 128-wide tile (16 pixels a thread, in registers), so a tile of any height
-// runs as ceil(tile_h / 32) slabs. Records are staged through
-// shared memory in chunks (one coalesced load per record field, broadcast
-// reads in the loop) and rejected per pixel on the record's bbox before the
-// edge math. The record table is read by id straight from the (C, 18) table.
+// What bounds the fold on an H100 is instruction rate and latency, not bytes: a
+// record is 72 bytes and a frame's records fit the L2 many times over. One
+// CTA walking a tile's whole segment lasted as long as the heaviest tile
+// (1,415 records at ~0.5 us each on the 1080p terrain, twelve times the
+// mean), and 98 % of its per-pixel work was a bbox reject that failed. So:
+//
+// - Work items. A tile's walk (the large bucket, then its own ids) is cut
+//   into chunks of at most kItem records, dealt round-robin (chunk c of n
+//   takes records c, c + n, c + 2n, ...: sorted ids are neighbours on
+//   screen, and a run of them would land in one warp's footprint); an item
+//   is one chunk folded into one slab of at most 32 rows of the 128-wide
+//   tile. The prep lists the chunks
+//   (item_tile, item_start: xr_torch/raster/records.py `item_table`); the
+//   CTAs take items in a fixed stride, so the heaviest tile is spread over
+//   as many SMs as it has chunks.
+// - Reject by warp. A warp owns 32 columns x 8 rows of the slab and a lane
+//   one column of 8 pixels, in registers. While a chunk is staged in shared
+//   memory, one thread a record tests its bbox against the sixteen
+//   footprints and the warps get their own bit masks of records
+//   (__ballot_sync); a warp walks only its set bits (__ffs), each at its own pace. A lane rejects a
+//   record on its column once and steps the three edge functions down its
+//   rows by addition (exact: the edges are modular). The per-pixel bbox and
+//   edge tests still follow, so the result does not change by a bit. This is
+//   the coarse / fine split of Laine and Karras, "High-Performance Software
+//   Rasterization on GPUs" (HPG 2011).
+// - Merge by key. The resolve is a minimum under a total order, so a pixel
+//   may be built from partial results over any partition of its records. A
+//   slab with one chunk stores its pixels directly. A slab with several
+//   merges each chunk's winners into a scratch frame of 64-bit keys with
+//   atomicMin (depth: z bits, then id) or atomicMax (painter's order: id);
+//   the chunk that arrives last (a counter behind __threadfence) unpacks and
+//   stores. A small kernel ahead of the fold clears the keys and the
+//   counters of those slabs, so nothing survives from launch to launch.
+//
+// No tensor cores: the edges are int32 products that rely on wraparound and
+// the depth needs every product and sum rounded on its own to keep ties
+// exact; neither maps onto wgmma. No TMA for the records: they are gathered
+// by id, 72 bytes each, not cut as tiles of an array; the staging is plain
+// 8-byte loads, and the two CTAs that share an SM overlap one's staging with
+// the other's fold. On the 1080p terrain (59,501 (tile, record) pairs, 794
+// chunks; NVIDIA H100 80GB HBM3, 700 W; xr_torch/tools/sweep_visibility.py)
+// a launch takes 0.065 ms, of which the pixel work of the fold is 0.043,
+// the staging 0.005, the merge 0.003-0.005 and the two launches, the clear
+// and the store of the frame 0.014: the fold is bound by instruction rate
+// (about 170 instructions for a record in a warp, 2.6 warps a record), so a
+// cp.async double buffer for the staging was not built.
 
 #pragma once
 
@@ -24,148 +66,454 @@
 
 namespace xr {
 
+typedef unsigned long long u64;
+
 constexpr int kFields = 18;     // record width (xr_torch/raster/records.py)
-constexpr int kThreads = 256;   // threads per CTA
+// The constants the design was tuned with. xr_torch/tools/sweep_visibility.py
+// rebuilds the kernels with other values (-DXR_THREADS=..., -DXR_ITEM=...,
+// -DXR_MIN_CTAS=...) and with its probes: XR_RUNS (a chunk is a run of
+// consecutive records; exact) and XR_NO_FOLD, XR_NO_MERGE, XR_NO_STAGE (the
+// pixel work, the merge or the staging compiled out; these break the output
+// and only show where the time goes). Nothing else defines them.
+#ifndef XR_THREADS
+#define XR_THREADS 512
+#endif
+#ifndef XR_ITEM
+#define XR_ITEM 128
+#endif
+#ifndef XR_MIN_CTAS
+#define XR_MIN_CTAS 2
+#endif
+constexpr int kThreads = XR_THREADS;   // threads per CTA
+constexpr int kMinCtas = XR_MIN_CTAS;  // CTAs an SM must hold: caps the fold at 64 registers
+constexpr int kWarps = kThreads / 32;
 constexpr int kTileW = 128;     // tile width the kernels take
-constexpr int kSlabRows = 32;   // rows of a tile one CTA owns
-constexpr int kMaxPpt = kSlabRows * kTileW / kThreads;  // pixels per thread
-constexpr int kChunk = 128;     // records staged in shared memory per pass
+constexpr int kSlabRows = 32;   // rows of a tile one item covers
+constexpr int kWarpCols = 32;   // a warp's footprint: one column a lane ...
+constexpr int kWarpRows = kSlabRows * kTileW / kThreads;  // ... and the 8 rows a lane owns
+constexpr int kColGroups = kTileW / kWarpCols;
+constexpr int kRowGroups = kSlabRows / kWarpRows;
+constexpr int kItem = XR_ITEM;  // records per item (records.py ITEM_RECORDS)
+constexpr int kWords = kItem / 32;
+constexpr int kCtasPerSm = 8;   // CTAs launched per SM, at most
 constexpr int kBg = 0x7fffffff;
 constexpr int kB16 = 32768;
-constexpr int kNoPixel = -(1 << 30);  // fails every bbox test
+constexpr unsigned kInfBits = 0x7f800000u;
 
-// The pixels of one CTA: the slab's fixed-point bbox and this thread's
-// pixel centers, with the (z, id) carry.
-struct Slab {
-  int row0, col0, rows;      // first framebuffer row/column, rows in the slab
-  int px0, px1, py0, py1;    // fixed-point centers of the slab's corner pixels
-  int pxs[kMaxPpt], pys[kMaxPpt], tb[kMaxPpt];
-  float zb[kMaxPpt];
+static_assert(kColGroups * kRowGroups == kWarps, "the footprints tile the slab");
+static_assert(kItem <= kThreads && kItem % 32 == 0, "one staging thread a record");
+static_assert(kFields % 2 == 0, "records are copied as 8-byte words");
+
+// The frame and its tiling, as every kernel here takes it.
+struct Frame {
+  int height, width, tile_h, ntx, ntiles, nslab, sub, depth_test;
+  int pitch;  // columns of the key scratch: ntx * kTileW
 };
 
-// Slab blockIdx.y of tile blockIdx.x, cleared to (+inf, BG), or id -1 in
-// painter's order.
-__device__ __forceinline__ void slab_init(Slab& s, int tile_h, int ntx,
-                                          int sub, bool depth_test) {
-  const int t = blockIdx.x;
-  const int half = sub >> 1;
-  s.row0 = (t / ntx) * tile_h + blockIdx.y * kSlabRows;
-  s.col0 = (t % ntx) * kTileW;
-  s.rows = min(kSlabRows, tile_h - (int)blockIdx.y * kSlabRows);
-  s.px0 = s.col0 * sub + half;
-  s.px1 = (s.col0 + kTileW - 1) * sub + half;
-  s.py0 = s.row0 * sub + half;
-  s.py1 = (s.row0 + s.rows - 1) * sub + half;
-#pragma unroll
-  for (int k = 0; k < kMaxPpt; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    const int r = p / kTileW;
-    const int c = p - r * kTileW;
-    const bool live = r < s.rows;
-    s.pxs[k] = live ? (s.col0 + c) * sub + half : kNoPixel;
-    s.pys[k] = live ? (s.row0 + r) * sub + half : kNoPixel;
-    s.zb[k] = __int_as_float(0x7f800000);  // +inf
-    s.tb[k] = depth_test ? kBg : -1;
+// Where a tile's own ids lie.
+struct StreamWalk {  // B1: the sorted bin segment inside the stream budget
+  const int* sid;
+  const int* starts;
+  const int* run_counts;
+  const int* tile_ran;
+  __device__ bool ran(int t) const { return tile_ran[t] != 0; }
+  __device__ void segment(int t, const int*& ids, int& n) const {
+    ids = sid + starts[t];
+    n = run_counts[t];
+  }
+};
+
+struct ListWalk {  // B2: the tile's capped list; every tile runs
+  const int* lists;
+  const int* counts;
+  int cap;
+  __device__ bool ran(int) const { return true; }
+  __device__ void segment(int t, const int*& ids, int& n) const {
+    ids = lists + (size_t)t * cap;
+    n = counts[t];
+  }
+};
+
+// The packed key of xr_torch/raster/records.py `pack_key`. Depth test: z in
+// [0, 1] orders by its bits; -0.0 packs as 0.0 so that the key orders as the
+// float compare does, and bit 0 keeps its sign for the stored z; the id
+// takes bits 1..32; the minimum wins and (+inf, BG) is the cleared key.
+// Painter's order: id + 1 above the z bits, the maximum wins, 0 is cleared.
+__device__ __forceinline__ u64 clear_key(bool depth_test) {
+  return depth_test ? ((u64)kInfBits << 32) | ((u64)(unsigned)kBg << 1) : 0ull;
+}
+
+__device__ __forceinline__ u64 pack_key(float z, int id, bool depth_test) {
+  const unsigned zb = __float_as_uint(z);
+  if (depth_test) {
+    const unsigned neg0 = zb == 0x80000000u ? 1u : 0u;
+    return ((u64)(neg0 ? 0u : zb) << 32) | ((u64)(unsigned)id << 1) | neg0;
+  }
+  return ((u64)(unsigned)(id + 1) << 32) | zb;
+}
+
+__device__ __forceinline__ void unpack_key(u64 key, bool depth_test, int& id,
+                                           float& z) {
+  if (depth_test) {
+    const unsigned lo = (unsigned)key;
+    id = (int)(lo >> 1);
+    z = __uint_as_float((lo & 1u) ? 0x80000000u : (unsigned)(key >> 32));
+  } else {
+    id = (int)(unsigned)(key >> 32) - 1;
+    z = __uint_as_float((unsigned)key);
   }
 }
 
-// Fold n records whose ids are ids[0..n) into the slab. x_test: whole-record
-// bbox reject against the slab first (uniform across the CTA; exact, since
-// the per-pixel bbox test follows). It is a template argument because a
-// runtime flag cost the stream kernel 18 % on full config3 (0.818 ->
-// 0.966 ms on an H100 at 700 W), though the branch is uniform.
-template <bool x_test>
-__device__ __forceinline__ void fold_records(
-    const int* __restrict__ ids, int n,
-    const int* __restrict__ rec, int (*s_rec)[kFields], Slab& s,
-    bool depth_test) {
-  for (int base = 0; base < n; base += kChunk) {
-    const int m = min(kChunk, n - base);
-    __syncthreads();  // the previous chunk is consumed
-    for (int e = threadIdx.x; e < m * kFields; e += kThreads) {
-      const int r = e / kFields;
-      const int f = e - r * kFields;
-      s_rec[r][f] = rec[(size_t)ids[base + r] * kFields + f];
-    }
-    __syncthreads();
-    for (int r = 0; r < m; ++r) {
-      const int* R = s_rec[r];
-      const int byp = R[16], bxp = R[17];
-      const int by0 = (byp & 0xFFFF) - kB16;
-      const int by1 = ((byp >> 16) & 0xFFFF) - kB16;
-      const int bx0 = (bxp & 0xFFFF) - kB16;
-      const int bx1 = ((bxp >> 16) & 0xFFFF) - kB16;
-      if (x_test && !(bx1 >= s.px0 && bx0 <= s.px1 && by1 >= s.py0 &&
-                      by0 <= s.py1)) {
-        continue;
-      }
-      const unsigned a0 = R[0], b0 = R[1], c0 = R[2];
-      const unsigned a1 = R[3], b1 = R[4], c1 = R[5];
-      const unsigned a2 = R[6], b2 = R[7], c2 = R[8];
-      const float z0 = __int_as_float(R[9]);
-      const float z1 = __int_as_float(R[10]);
-      const float z2 = __int_as_float(R[11]);
-      const float inv = __int_as_float(R[12]);
-      const int id = R[14];
-      const int of = R[15];
-      const int o0 = of & 1, o1 = (of >> 1) & 1, o2 = (of >> 2) & 1;
+// One lane's pixels: a column of at most kWarpRows rows of the slab, with
+// the (z, id) carry in registers.
+struct Run {
+  int row0, col, rows;   // first framebuffer row, column, live rows (may be 0)
+  int px, py0, py_last;  // fixed-point centers: the column, first and last live row
+  float zb[kWarpRows];
+  int tb[kWarpRows];
+};
+
+// The first row and the live rows of row group rg of a slab.
+__device__ __forceinline__ void row_group(const Frame& f, int t, int slab,
+                                          int rg, int& row0, int& rows) {
+  const int slab_rows = min(kSlabRows, f.tile_h - slab * kSlabRows);
+  row0 = (t / f.ntx) * f.tile_h + slab * kSlabRows + rg * kWarpRows;
+  rows = max(0, min(kWarpRows, slab_rows - rg * kWarpRows));
+}
+
+// This thread's run in slab `slab` of tile t, cleared to (+inf, BG), or id
+// -1 in painter's order.
+__device__ __forceinline__ void run_init(Run& s, const Frame& f, int t, int slab) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int half = f.sub >> 1;
+  row_group(f, t, slab, warp / kColGroups, s.row0, s.rows);
+  s.col = (t % f.ntx) * kTileW + (warp % kColGroups) * kWarpCols + lane;
+  s.px = s.col * f.sub + half;
+  s.py0 = s.row0 * f.sub + half;
+  s.py_last = s.py0 + (s.rows - 1) * f.sub;
 #pragma unroll
-      for (int k = 0; k < kMaxPpt; ++k) {
-        const int px = s.pxs[k], py = s.pys[k];
-        if (px < bx0 || px > bx1 || py < by0 || py > by1) continue;
-        const int e0 = (int)(a0 * (unsigned)px + b0 * (unsigned)py + c0);
-        const int e1 = (int)(a1 * (unsigned)px + b1 * (unsigned)py + c1);
-        const int e2 = (int)(a2 * (unsigned)px + b2 * (unsigned)py + c2);
-        if (e0 < o0 || e1 < o1 || e2 < o2) continue;
-        const float w0 = __fmul_rn(__fmul_rn(__int2float_rn(e0), inv), z0);
-        const float w1 = __fmul_rn(__fmul_rn(__int2float_rn(e1), inv), z1);
-        const float w2 = __fmul_rn(__fmul_rn(__int2float_rn(e2), inv), z2);
+  for (int k = 0; k < kWarpRows; ++k) {
+    s.zb[k] = __uint_as_float(kInfBits);
+    s.tb[k] = f.depth_test ? kBg : -1;
+  }
+}
+
+// Bit w is set where the bbox packed in (byp, bxp) meets the footprint of
+// warp w in slab `slab` of tile t.
+__device__ __forceinline__ unsigned footprint_hits(const Frame& f, int t, int slab,
+                                                   int byp, int bxp) {
+  const int by0 = (byp & 0xFFFF) - kB16, by1 = ((byp >> 16) & 0xFFFF) - kB16;
+  const int bx0 = (bxp & 0xFFFF) - kB16, bx1 = ((bxp >> 16) & 0xFFFF) - kB16;
+  const int half = f.sub >> 1;
+  unsigned cols = 0, hits = 0;
+#pragma unroll
+  for (int g = 0; g < kColGroups; ++g) {
+    const int gx0 = ((t % f.ntx) * kTileW + g * kWarpCols) * f.sub + half;
+    const int gx1 = gx0 + (kWarpCols - 1) * f.sub;
+    if (bx1 >= gx0 && bx0 <= gx1) cols |= 1u << g;
+  }
+#pragma unroll
+  for (int h = 0; h < kRowGroups; ++h) {
+    int row0, rows;
+    row_group(f, t, slab, h, row0, rows);
+    const int gy0 = row0 * f.sub + half;
+    const int gy1 = gy0 + (rows - 1) * f.sub;
+    if (rows > 0 && by1 >= gy0 && by0 <= gy1) hits |= cols << (h * kColGroups);
+  }
+  return hits;
+}
+
+// Fold the staged record R into this lane's run.
+__device__ __forceinline__ void fold_record(const int* R, Run& s, int sub,
+                                            bool depth_test) {
+  const int byp = R[16], bxp = R[17];
+  const int bx0 = (bxp & 0xFFFF) - kB16;
+  const int bx1 = ((bxp >> 16) & 0xFFFF) - kB16;
+  if (s.px < bx0 || s.px > bx1) return;
+  const int by0 = (byp & 0xFFFF) - kB16;
+  const int by1 = min(((byp >> 16) & 0xFFFF) - kB16, s.py_last);
+  // the edges at the run's first row, stepped down the column by b_k * sub
+  const unsigned px = (unsigned)s.px, py = (unsigned)s.py0;
+  unsigned e0 = (unsigned)R[0] * px + (unsigned)R[1] * py + (unsigned)R[2];
+  unsigned e1 = (unsigned)R[3] * px + (unsigned)R[4] * py + (unsigned)R[5];
+  unsigned e2 = (unsigned)R[6] * px + (unsigned)R[7] * py + (unsigned)R[8];
+  const unsigned d0 = (unsigned)R[1] * (unsigned)sub;
+  const unsigned d1 = (unsigned)R[4] * (unsigned)sub;
+  const unsigned d2 = (unsigned)R[7] * (unsigned)sub;
+  const float z0 = __int_as_float(R[9]);
+  const float z1 = __int_as_float(R[10]);
+  const float z2 = __int_as_float(R[11]);
+  const float inv = __int_as_float(R[12]);
+  const int id = R[14];
+  const int of = R[15];
+  const int o0 = of & 1, o1 = (of >> 1) & 1, o2 = (of >> 2) & 1;
+#pragma unroll
+  for (int k = 0; k < kWarpRows; ++k) {
+    const int pyk = s.py0 + k * sub;
+    if (pyk >= by0 && pyk <= by1) {  // uniform across the warp
+      const int i0 = (int)e0, i1 = (int)e1, i2 = (int)e2;
+      if (i0 >= o0 && i1 >= o1 && i2 >= o2) {
+        const float w0 = __fmul_rn(__fmul_rn(__int2float_rn(i0), inv), z0);
+        const float w1 = __fmul_rn(__fmul_rn(__int2float_rn(i1), inv), z1);
+        const float w2 = __fmul_rn(__fmul_rn(__int2float_rn(i2), inv), z2);
         const float zf = __fadd_rn(__fadd_rn(w0, w1), w2);
-        if (!(zf >= 0.0f && zf <= 1.0f)) continue;
-        const bool better = depth_test
-            ? (zf < s.zb[k] || (zf == s.zb[k] && id < s.tb[k]))
-            : (id > s.tb[k]);
-        if (better) {
-          s.zb[k] = zf;
-          s.tb[k] = id;
+        if (zf >= 0.0f && zf <= 1.0f) {
+          const bool better = depth_test
+              ? (zf < s.zb[k] || (zf == s.zb[k] && id < s.tb[k]))
+              : (id > s.tb[k]);
+          if (better) {
+            s.zb[k] = zf;
+            s.tb[k] = id;
+          }
         }
       }
     }
+    e0 += d0;
+    e1 += d1;
+    e2 += d2;
   }
 }
 
-// Write the slab to the (height, width) outputs; a tile that did not run,
-// and every pixel no record won, is background (BG, +inf).
-__device__ __forceinline__ void slab_store(const Slab& s, bool ran,
-                                           bool depth_test, int height,
-                                           int width, int* __restrict__ tid_out,
-                                           float* __restrict__ z_out) {
+// Write the run to the (height, width) outputs; every pixel no record won
+// is background (BG, +inf).
+__device__ __forceinline__ void run_store(const Run& s, const Frame& f,
+                                          int* __restrict__ tid_out,
+                                          float* __restrict__ z_out) {
+  if (s.col >= f.width) return;
 #pragma unroll
-  for (int k = 0; k < kMaxPpt; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    const int r = p / kTileW;
-    const int row = s.row0 + r;
-    const int col = s.col0 + (p - r * kTileW);
-    if (r >= s.rows || row >= height || col >= width) continue;
+  for (int k = 0; k < kWarpRows; ++k) {
+    const int row = s.row0 + k;
+    if (k >= s.rows || row >= f.height) continue;
     int id = s.tb[k];
     float z = s.zb[k];
-    if (!depth_test && id < 0) id = kBg;  // painter's order: -1 is "none"
-    if (id == kBg || !ran) {
-      id = kBg;
-      z = __int_as_float(0x7f800000);
-    }
-    tid_out[(size_t)row * width + col] = id;
-    z_out[(size_t)row * width + col] = z;
+    if (id < 0) id = kBg;  // painter's order: -1 is "none"
+    if (id == kBg) z = __uint_as_float(kInfBits);
+    tid_out[(size_t)row * f.width + s.col] = id;
+    z_out[(size_t)row * f.width + s.col] = z;
   }
 }
 
-// Grid of (tile, slab) CTAs for tile_h rows, or a zero dimension for a
-// shape the kernels do not take.
-inline dim3 slab_grid(int ntiles, int tile_h, int tile_w) {
-  if (ntiles <= 0 || tile_w != kTileW || tile_h <= 0) {
-    return dim3(0, 0, 0);
+// Body of the clear kernel, grid (tile, slab): the keys and the arrival
+// counter of every slab whose tile has more than one chunk.
+__device__ __forceinline__ void clear_merge_state(const int* __restrict__ item_start,
+                                                  u64* __restrict__ keys,
+                                                  int* __restrict__ arrivals,
+                                                  const Frame& f) {
+  const int t = blockIdx.x, slab = blockIdx.y;
+  if (item_start[t + 1] - item_start[t] <= 1) return;
+  if (threadIdx.x == 0) arrivals[t * f.nslab + slab] = 0;
+  Run s;
+  run_init(s, f, t, slab);
+  const u64 clear = clear_key(f.depth_test != 0);
+#pragma unroll
+  for (int k = 0; k < kWarpRows; ++k) {
+    if (k < s.rows) keys[(size_t)(s.row0 + k) * f.pitch + s.col] = clear;
   }
-  return dim3(ntiles, (tile_h + kSlabRows - 1) / kSlabRows, 1);
+}
+
+// Body of the fold kernel: this CTA's items, in a stride of the grid. Item
+// i is chunk i / nslab of the prep's table in slab i % nslab of its tile.
+template <class Walk>
+__device__ __forceinline__ void fold_items(
+    const int* __restrict__ rec, const Walk& walk,
+    const int* __restrict__ large_ids, const int* __restrict__ large_count,
+    const int* __restrict__ item_tile, const int* __restrict__ item_start,
+    int item_bound, u64* keys, int* arrivals,
+    int* __restrict__ tid_out, float* __restrict__ z_out, const Frame& f) {
+  __shared__ __align__(8) int s_rec[kItem][kFields];
+  __shared__ unsigned s_mask[kWarps][kWords];
+  __shared__ int s_last;
+  const bool depth_test = f.depth_test != 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int L = *large_count;
+  const int nl = (L + kItem - 1) / kItem;  // chunks of the large bucket
+  const int total = min(item_start[f.ntiles], item_bound) * f.nslab;
+  for (int i = blockIdx.x; i < total; i += gridDim.x) {
+    const int j = i / f.nslab, slab = i - j * f.nslab;
+    const int t = item_tile[j];
+    const int c = j - item_start[t];                    // chunk of the tile's walk
+    const int nch = item_start[t + 1] - item_start[t];  // chunks of the tile
+    // the chunk takes every stride-th record of its walk, from `first`: the
+    // ids are sorted and neighbours in id are neighbours on screen, so a
+    // run of consecutive records would land in one warp's footprint
+    const int* ids;
+    int first, stride, m;
+#ifndef XR_RUNS
+    if (c < nl) {
+      ids = large_ids;
+      first = c;
+      stride = nl;
+      m = (L - c + nl - 1) / nl;
+    } else {
+      int n;
+      walk.segment(t, ids, n);
+      first = c - nl;
+      stride = (n + kItem - 1) / kItem;  // chunks of the tile's own ids
+      m = stride > 0 ? (n - first + stride - 1) / stride : 0;
+    }
+#else  // the probe: chunk c is records c * kItem, c * kItem + 1, ...
+    int n = L;
+    ids = large_ids;
+    first = c * kItem;
+    if (c >= nl) {
+      walk.segment(t, ids, n);
+      first = (c - nl) * kItem;
+    }
+    stride = 1;
+    m = min(kItem, n - first);
+#endif
+    if (!walk.ran(t) || m < 0) m = 0;  // a tile outside the budget folds nothing
+
+    Run s;
+    run_init(s, f, t, slab);
+
+    __syncthreads();  // the previous item's records and masks are consumed
+#ifdef XR_NO_STAGE
+    m = 0;
+#endif
+    for (int e = threadIdx.x; e < m * (kFields / 2); e += kThreads) {
+      const int r = e / (kFields / 2);
+      const int w = e - r * (kFields / 2);
+      reinterpret_cast<int2*>(s_rec[r])[w] =
+          reinterpret_cast<const int2*>(rec + (size_t)ids[first + r * stride] * kFields)[w];
+    }
+    if (threadIdx.x < kItem) {  // whole warps: one thread a record
+      unsigned hits = 0;
+      if ((int)threadIdx.x < m) {
+        const int* R = rec + (size_t)ids[first + threadIdx.x * stride] * kFields;
+        hits = footprint_hits(f, t, slab, R[16], R[17]);
+      }
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const unsigned b = __ballot_sync(0xffffffffu, (hits >> w) & 1u);
+        if (lane == 0) s_mask[w][warp] = b;
+      }
+    }
+    __syncthreads();
+
+    for (int q = 0; q < kWords; ++q) {
+      unsigned bits = s_mask[warp][q];
+      while (bits) {
+        const int r = q * 32 + __ffs(bits) - 1;
+        bits &= bits - 1;
+#ifdef XR_NO_FOLD
+        s.tb[0] ^= s_rec[r][14];  // keeps the walk of the masks alive
+#else
+        fold_record(s_rec[r], s, f.sub, depth_test);
+#endif
+      }
+    }
+
+#ifdef XR_NO_MERGE
+    if (true) {
+#else
+    if (nch == 1) {  // the slab's only chunk
+#endif
+      run_store(s, f, tid_out, z_out);
+      continue;
+    }
+    // several chunks: merge the winners, and the last to arrive unpacks
+#pragma unroll
+    for (int k = 0; k < kWarpRows; ++k) {
+      if (k < s.rows && s.tb[k] != (depth_test ? kBg : -1)) {
+        u64* p = keys + (size_t)(s.row0 + k) * f.pitch + s.col;
+        const u64 key = pack_key(s.zb[k], s.tb[k], depth_test);
+        if (depth_test) {
+          atomicMin(p, key);
+        } else {
+          atomicMax(p, key);
+        }
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      s_last = atomicAdd(arrivals + t * f.nslab + slab, 1) == nch - 1;
+    }
+    __syncthreads();
+    if (s_last) {  // uniform across the CTA
+      __threadfence();
+#pragma unroll
+      for (int k = 0; k < kWarpRows; ++k) {
+        if (k < s.rows) {
+          const u64 key = __ldcg(keys + (size_t)(s.row0 + k) * f.pitch + s.col);
+          unpack_key(key, depth_test, s.tb[k], s.zb[k]);
+        }
+      }
+      run_store(s, f, tid_out, z_out);
+    }
+  }
+}
+
+// The frame's description, or ntiles 0 for a shape the kernels do not take.
+inline Frame make_frame(int ntiles, int height, int width, int tile_h, int tile_w,
+                        int ntx, int sub, int depth_test) {
+  Frame f = {};
+  if (ntiles <= 0 || tile_w != kTileW || tile_h <= 0 || ntx <= 0) return f;
+  f.height = height;
+  f.width = width;
+  f.tile_h = tile_h;
+  f.ntx = ntx;
+  f.ntiles = ntiles;
+  f.nslab = (tile_h + kSlabRows - 1) / kSlabRows;
+  f.sub = sub;
+  f.depth_test = depth_test;
+  f.pitch = ntx * kTileW;
+  return f;
+}
+
+// CTAs of the fold kernel: one an item up to kCtasPerSm an SM, or 0 if the
+// device cannot be asked.
+inline int fold_grid(const Frame& f, int item_bound) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return 0;
+  }
+  const long long items = (long long)item_bound * f.nslab;
+  const long long most = (long long)sms * kCtasPerSm;
+  return (int)(items < most ? items : most);
+}
+
+// The two kernels of a visibility launch, one pair per Walk (the clear
+// kernel does not read it; the argument keeps the pairs apart at link time).
+template <class Walk>
+__global__ void __launch_bounds__(kThreads) clear_kernel(
+    const int* __restrict__ item_start, u64* __restrict__ keys,
+    int* __restrict__ arrivals, Frame f) {
+  clear_merge_state(item_start, keys, arrivals, f);
+}
+
+template <class Walk>
+__global__ void __launch_bounds__(kThreads, kMinCtas) fold_kernel(
+    const int* __restrict__ rec, Walk walk, const int* __restrict__ large_ids,
+    const int* __restrict__ large_count, const int* __restrict__ item_tile,
+    const int* __restrict__ item_start, int item_bound, u64* keys,
+    int* arrivals, int* __restrict__ tid_out, float* __restrict__ z_out,
+    Frame f) {
+  fold_items(rec, walk, large_ids, large_count, item_tile, item_start, item_bound,
+             keys, arrivals, tid_out, z_out, f);
+}
+
+// One visibility launch on `stream`: the clear kernel, then the fold kernel.
+// Allocates nothing. Returns the first error, or cudaErrorInvalidValue for a
+// shape the kernels do not take (f.ntiles 0, no item).
+template <class Walk>
+inline int launch_visibility(const int* rec, const Walk& walk, const int* large_ids,
+                             const int* large_count, const int* item_tile,
+                             const int* item_start, int item_bound, u64* keys,
+                             int* arrivals, int* tid_out, float* z_out,
+                             const Frame& f, cudaStream_t stream) {
+  const int grid = f.ntiles > 0 && item_bound >= f.ntiles ? fold_grid(f, item_bound) : 0;
+  if (grid <= 0) return (int)cudaErrorInvalidValue;
+  clear_kernel<Walk><<<dim3(f.ntiles, f.nslab, 1), kThreads, 0, stream>>>(
+      item_start, keys, arrivals, f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fold_kernel<Walk><<<grid, kThreads, 0, stream>>>(
+      rec, walk, large_ids, large_count, item_tile, item_start, item_bound, keys,
+      arrivals, tid_out, z_out, f);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace xr

@@ -6,8 +6,10 @@ Kernels (one launch wrapper each):
   lane_gather   csrc/gather.cu      out[s, j] = tab[s, idx[j]]
   quad_gather   csrc/gather.cu      out[n] = sum_s tab[s, idx[n]] (u32, wrapping)
   quad_gather1  csrc/gather.cu      out[n] = tab[0, idx[n]]
-The two visibility kernels share their record loop (csrc/fold_records.cuh);
-the gathers carry the texture-fetch microbenchmarks (xr_torch/tools/).
+The two visibility kernels share their record fold (csrc/fold_records.cuh):
+a launch is a small clear kernel followed by the fold kernel over the work
+items the prep lists, counted as one launch. The gathers carry the
+texture-fetch microbenchmarks (xr_torch/tools/).
 
 The sources under ``xr_torch/csrc/`` are compiled at first use with nvcc,
 one process per source started together, and linked into one shared
@@ -109,9 +111,9 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.xr_vis_stream.argtypes = [p] * 9 + [i] * 8 + [p]
+            lib.xr_vis_stream.argtypes = [p] * 13 + [i] * 9 + [p]
             lib.xr_vis_stream.restype = i
-            lib.xr_vis_lists.argtypes = [p] * 7 + [i] * 9 + [p]
+            lib.xr_vis_lists.argtypes = [p] * 11 + [i] * 10 + [p]
             lib.xr_vis_lists.restype = i
             lib.xr_lane_gather.argtypes = [p, p, p, i, i, p]
             lib.xr_quad_gather.argtypes = [p, p, p, i64, i, i, p]
@@ -151,14 +153,34 @@ def _launch(name, fn, *args) -> None:
     launches[name] += 1
 
 
+def _check_items(item_tile, item_start, ntiles, dev):
+    _check("item_tile", item_tile, torch.int32, None, dev)
+    _check("item_start", item_start, torch.int32, (ntiles + 1,), dev)
+    if item_tile.ndim != 1 or item_tile.shape[0] < ntiles:
+        raise ValueError("item_tile must hold at least one chunk per tile")
+
+
+def _outputs(height, width, tile_h, ntx, dev):
+    """The (tid, z) frame and the kernels' scratch (64-bit keys of every
+    tile pixel, one arrival counter per 32-row slab), none initialised."""
+    nty = -(-height // tile_h)
+    tid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    keys = torch.empty((nty * tile_h, ntx * TILE_W), dtype=torch.int64, device=dev)
+    arrivals = torch.empty((nty * ntx * -(-tile_h // 32),), dtype=torch.int32, device=dev)
+    return tid, z, keys, arrivals
+
+
 def vis_stream(rec, sid, starts, run_counts, tile_ran, large_ids, large_count,
+               item_tile, item_start,
                *, height, width, tile_h, tile_w, ntx, subpixel, depth_test):
     """Launch the streaming visibility kernel (see csrc/vis_stream.cu) on the
     current stream. Returns (tid (H,W) int32, z (H,W) f32, +inf background).
 
     rec (C,18) i32; sid (S,) i32; starts, run_counts, tile_ran (ntiles,) i32;
-    large_ids (L,) i32; large_count (1,) i32 — all on one CUDA device.
-    Tiles are tile_w = 128 wide and of any height."""
+    large_ids (L,) i32; large_count (1,) i32; item_tile (bound,) i32 and
+    item_start (ntiles + 1,) i32 as raster.records.item_table makes them —
+    all on one CUDA device. Tiles are tile_w = 128 wide and of any height."""
     _check_tile(tile_w)
     lib = library()
     dev = rec.device
@@ -169,30 +191,33 @@ def vis_stream(rec, sid, starts, run_counts, tile_ran, large_ids, large_count,
         _check(n, t, torch.int32, (ntiles,), dev)
     _check("large_ids", large_ids, torch.int32, None, dev)
     _check("large_count", large_count, torch.int32, (1,), dev)
+    _check_items(item_tile, item_start, ntiles, dev)
     if ntiles != ntx * (-(-height // tile_h)):
         raise ValueError("starts must have one entry per tile")
-    tid = torch.empty((height, width), dtype=torch.int32, device=dev)
-    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tid, z, keys, arrivals = _outputs(height, width, tile_h, ntx, dev)
     _launch(
         "vis_stream", lib.xr_vis_stream,
         rec.data_ptr(), sid.data_ptr(), starts.data_ptr(), run_counts.data_ptr(),
         tile_ran.data_ptr(), large_ids.data_ptr(), large_count.data_ptr(),
+        item_tile.data_ptr(), item_start.data_ptr(), keys.data_ptr(), arrivals.data_ptr(),
         tid.data_ptr(), z.data_ptr(),
-        ntiles, height, width, tile_h, tile_w, ntx, subpixel, int(bool(depth_test)),
+        ntiles, item_tile.shape[0], height, width, tile_h, tile_w, ntx, subpixel,
+        int(bool(depth_test)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     return tid, z
 
 
-def vis_lists(rec, lists, counts, large_ids, large_count,
+def vis_lists(rec, lists, counts, large_ids, large_count, item_tile, item_start,
               *, height, width, tile_h, tile_w, ntx, subpixel, depth_test):
     """Launch the per-tile list visibility kernel (see csrc/vis_lists.cu) on
     the current stream. Returns (tid (H,W) int32, z (H,W) f32, +inf
     background).
 
     rec (C,18) i32; lists (ntiles, cap) i32; counts (ntiles,) i32 (<= cap);
-    large_ids (L,) i32; large_count (1,) i32 — all on one CUDA device.
-    Tiles are tile_w = 128 wide and of any height."""
+    large_ids (L,) i32; large_count (1,) i32; item_tile (bound,) i32 and
+    item_start (ntiles + 1,) i32 as raster.records.item_table makes them —
+    all on one CUDA device. Tiles are tile_w = 128 wide and of any height."""
     _check_tile(tile_w)
     lib = library()
     dev = rec.device
@@ -202,15 +227,17 @@ def vis_lists(rec, lists, counts, large_ids, large_count,
     _check("counts", counts, torch.int32, (ntiles,), dev)
     _check("large_ids", large_ids, torch.int32, None, dev)
     _check("large_count", large_count, torch.int32, (1,), dev)
+    _check_items(item_tile, item_start, ntiles, dev)
     if ntiles != ntx * (-(-height // tile_h)):
         raise ValueError("lists must have one row per tile")
-    tid = torch.empty((height, width), dtype=torch.int32, device=dev)
-    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tid, z, keys, arrivals = _outputs(height, width, tile_h, ntx, dev)
     _launch(
         "vis_lists", lib.xr_vis_lists,
         rec.data_ptr(), lists.data_ptr(), counts.data_ptr(), large_ids.data_ptr(),
-        large_count.data_ptr(), tid.data_ptr(), z.data_ptr(),
-        ntiles, cap, height, width, tile_h, tile_w, ntx, subpixel, int(bool(depth_test)),
+        large_count.data_ptr(), item_tile.data_ptr(), item_start.data_ptr(),
+        keys.data_ptr(), arrivals.data_ptr(), tid.data_ptr(), z.data_ptr(),
+        ntiles, cap, item_tile.shape[0], height, width, tile_h, tile_w, ntx, subpixel,
+        int(bool(depth_test)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     return tid, z

@@ -57,6 +57,9 @@ def merge_chunk(zb, tb, zf, ids, depth_test: bool):
         z_new = zf.amin(1)
         id_new = torch.where(zf == z_new[:, None], ids, BG_TRI_ID).amin(1)
         id_new = torch.where(torch.isinf(z_new), BG_TRI_ID, id_new)
+        # -0.0 ties 0.0 and the id decides: the depth kept is the winner's own
+        own = (ids == id_new[:, None]) & (zf == z_new[:, None])
+        z_new = torch.where(own, zf, BG_DEPTH).amin(1)
         upd = resolve_better(z_new, id_new, zb, tb)
     else:
         keyed = torch.where(torch.isinf(zf), -1, ids.expand(zf.shape))

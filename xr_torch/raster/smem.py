@@ -6,7 +6,10 @@ version.
 Every tile folds the global large bucket, then its own id list, capped at
 ``bin_capacity`` by the binning; the entries past a tile's cap are dropped
 and counted in ``dropped``. The reference's SMEM record windows are not
-needed: the kernel reads records by id from the (C, 18) table.
+needed: the kernel reads records by id from the (C, 18) table. The prep also
+lists the work items of the kernel: each tile's walk cut into chunks of
+``records.ITEM_RECORDS`` (``item_tile``, ``item_start``), computed on the
+device without a host read.
 
 The wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel, and raises if that fails.
@@ -23,7 +26,13 @@ from xr_torch import kernels
 from xr_torch.core.types import RenderConfig
 from xr_torch.pipeline.geometry import TriBuf
 from xr_torch.raster.binning import bin_triangles, grid_dims
-from xr_torch.raster.records import fold_plain, id_chunks, pack_tri_records
+from xr_torch.raster.records import (
+    fold_plain,
+    id_chunks,
+    item_bound,
+    item_table,
+    pack_tri_records,
+)
 
 
 class ListsInputs(NamedTuple):
@@ -35,6 +44,8 @@ class ListsInputs(NamedTuple):
     large_ids: torch.Tensor  # (lcap,) i32 large bucket, ascending
     large_count: torch.Tensor  # (1,) i32 live entries of large_ids
     dropped: torch.Tensor  # () i32 entries past bin_capacity + large overflow
+    item_tile: torch.Tensor  # (bound,) i32 tile of each chunk of the kernel's walk
+    item_start: torch.Tensor  # (ntiles + 1,) i32 first chunk of each tile, then the total
 
 
 def prepare_lists(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> ListsInputs:
@@ -42,13 +53,19 @@ def prepare_lists(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> Lists
     if config.z_earlyout:
         raise NotImplementedError("z_earlyout is not ported yet")
     b = bin_triangles(tri, config, y_offset=y_offset)
+    ntiles, cap = b.lists.shape
+    large_count = b.large_count.reshape(1)
+    bound = item_bound(ntiles, config.large_capacity, ntiles * cap)
+    item_tile, item_start = item_table(b.counts, torch.ones_like(b.counts), large_count, bound)
     return ListsInputs(
         rec=pack_tri_records(tri, y_offset * config.subpixel),
         lists=b.lists,
         counts=b.counts,
         large_ids=b.large_ids,
-        large_count=b.large_count.reshape(1),
+        large_count=large_count,
         dropped=b.dropped,
+        item_tile=item_tile,
+        item_start=item_start,
     )
 
 
@@ -76,6 +93,7 @@ def vis_lists(inp: ListsInputs, config: RenderConfig):
     _, ntx = grid_dims(config)
     return kernels.vis_lists(
         inp.rec, inp.lists, inp.counts, inp.large_ids, inp.large_count,
+        inp.item_tile, inp.item_start,
         height=config.height, width=config.width, tile_h=config.tile_h,
         tile_w=config.tile_w, ntx=ntx, subpixel=config.subpixel,
         depth_test=config.depth_test,

@@ -8,7 +8,10 @@ records in blocks of ``stream_block`` entries under a global block budget
 (``stream_blocks``); the port keeps that budget's outcome exactly — the
 same tiles run, the same records drop, the same ``dropped`` count — by
 computing per tile how many of its records fall inside the budget
-(``run_counts``) and which tiles start inside it (``tile_ran``).
+(``run_counts``) and which tiles start inside it (``tile_ran``). It also
+lists the work items of the kernel: each tile's walk cut into chunks of
+``records.ITEM_RECORDS`` (``item_tile``, ``item_start``), computed on the
+device without a host read.
 
 The wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel, and raises if that fails.
@@ -25,7 +28,13 @@ from xr_torch import kernels
 from xr_torch.core.types import RenderConfig
 from xr_torch.pipeline.geometry import MAX_FAN, TriBuf, clip_budget
 from xr_torch.raster.binning import bin_triangles, grid_dims
-from xr_torch.raster.records import fold_plain, id_chunks, pack_tri_records
+from xr_torch.raster.records import (
+    fold_plain,
+    id_chunks,
+    item_bound,
+    item_table,
+    pack_tri_records,
+)
 
 I32 = torch.int32
 
@@ -55,6 +64,8 @@ class StreamInputs(NamedTuple):
     large_ids: torch.Tensor  # (lcap,) i32 large bucket, ascending
     large_count: torch.Tensor  # (1,) i32 live entries of large_ids
     dropped: torch.Tensor  # () i32 dropped_blocks * BLK + large_dropped
+    item_tile: torch.Tensor  # (bound,) i32 tile of each chunk of the kernel's walk
+    item_start: torch.Tensor  # (ntiles + 1,) i32 first chunk of each tile, then the total
 
 
 def prepare(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> StreamInputs:
@@ -74,6 +85,9 @@ def prepare(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> StreamInput
     avail = torch.clamp(NB - bstart_t, 0) * BLK
     run_counts = torch.minimum(counts, avail)
     tile_ran = (bstart_t < torch.clamp_max(nb_total, NB)).to(I32)
+    large_count = b.large_count.reshape(1)
+    bound = item_bound(counts.shape[0], config.large_capacity, b.sid.shape[0])
+    item_tile, item_start = item_table(run_counts, tile_ran, large_count, bound)
     return StreamInputs(
         rec=pack_tri_records(tri, y_offset * config.subpixel),
         sid=b.sid,
@@ -81,8 +95,10 @@ def prepare(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> StreamInput
         run_counts=run_counts,
         tile_ran=tile_ran,
         large_ids=b.large_ids,
-        large_count=b.large_count.reshape(1),
+        large_count=large_count,
         dropped=(dropped_blocks * BLK + b.large_dropped).to(I32),
+        item_tile=item_tile,
+        item_start=item_start,
     )
 
 
@@ -108,7 +124,7 @@ def vis_stream(inp: StreamInputs, config: RenderConfig):
     nty, ntx = grid_dims(config)
     return kernels.vis_stream(
         inp.rec, inp.sid, inp.starts, inp.run_counts, inp.tile_ran,
-        inp.large_ids, inp.large_count,
+        inp.large_ids, inp.large_count, inp.item_tile, inp.item_start,
         height=config.height, width=config.width, tile_h=config.tile_h,
         tile_w=config.tile_w, ntx=ntx, subpixel=config.subpixel,
         depth_test=config.depth_test,
