@@ -25,9 +25,12 @@ Phases, each of which raises on failure (exit code != 0, no final line):
   4. gathers: the lane gather (lane_gather, P1) at the probe's four shapes
      and the 16-channel and one-channel quad gathers (quad_gather P2,
      quad_gather1 P3) at the full 2,073,600-pixel shape, bit-exact against
-     their plain versions; each timed with a cold L2 beside its plain
-     version, the one PyTorch call that computes it (P1, P3; two calls for
-     P2) and its bound
+     their plain versions; P1 and P2 also on uniformly random indices, on
+     indices outside the table row, P2 on 13 table rows, a second launch
+     against the first and the launch after the timed ones against the
+     plain version; each timed with a cold L2, the launches queued behind a
+     spin on the device, beside its plain version, the one PyTorch call
+     that computes it (P1, P3; two calls for P2) and its bound
   5. golden: config1 (brute force), config2 (128x128 tiles, stream kernel),
      config3, config4 and config4b (two passes) at golden size through
      Renderer on the card against tests/goldens/ (<= 1 LSB; config4/4b at
@@ -99,18 +102,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2, spin_cycles: int = 0) -> float:
-    """Mean device time of fn() in ms, by CUDA events around reps calls.
-    With spin_cycles the device first spins that long, so that the host
-    enqueues the calls ahead of it and the time between the events is the
-    device's own, not the pace at which the host launches: a launch of the
-    visibility wrappers costs the host more than the kernels take."""
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of fn() in ms, by CUDA events around reps calls that
+    the host enqueues one by one: for calls that outlast their launch. A
+    kernel shorter than the host's launch of its wrapper is timed by
+    xr_torch.tools.timing.device_ms, queued behind a spin on the device."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    if spin_cycles:
-        torch.cuda._sleep(spin_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -271,6 +271,7 @@ def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clo
     ones)."""
     from xr_torch.app.renderer import visible_triangles
     from xr_torch.pipeline.geometry import clip_capacity
+    from xr_torch.tools import timing
 
     prepare, launch, plain = _kernel_fns(kernel)
     _, tri = visible_triangles(scene, *view_proj, cfg, clip_capacity(scene.mesh.num_triangles, cfg))
@@ -295,8 +296,8 @@ def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clo
            "one_chunk_tiles": int((chunks == 1).sum())}
     line += f" chunks={int(chunks.sum())} (most in a tile {out['max_chunks']})"
     if time_it:
-        # 50 launches queued behind 20 ms of spinning: device time
-        out["ms"] = cuda_ms(lambda: launch(inp, cfg), reps=50, spin_cycles=int(0.02 * clock_hz))
+        # 50 launches queued behind ~20 ms of spinning: device time
+        out["ms"] = timing.device_ms(lambda: launch(inp, cfg), reps=50, warmup=2)[0]
         # after 50 launches in a row the scratch must still be the kernel's own
         _same_vis(label, "the plain version, after the timed launches", launch(inp, cfg),
                   (tp, zp))
@@ -404,22 +405,6 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
     }
 
 
-def cold_ms(fn, flush: torch.Tensor, reps: int = 50) -> float:
-    """Mean device time of fn() in ms with a cold L2: `flush` (larger than
-    the 50 MB L2) is written before each call, and CUDA events bracket the
-    call alone."""
-    fn()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(reps)]
-    for start, end in events:
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / reps
-
-
 def _bit_exact(label, got, want) -> float:
     """Raise unless got and want hold the same bits; returns their largest
     absolute difference (0.0)."""
@@ -435,64 +420,100 @@ def _bit_exact(label, got, want) -> float:
 
 def phase_gathers(dev, clock_hz) -> dict:
     """P1 at the probe's four shapes, P2 and P3 at the full shape: each
-    kernel bit-exact against its plain version, then timed with a cold L2
-    beside the plain version and the PyTorch call(s) that compute the same
-    function. Returns each kernel's numbers (P1's at its largest shape)."""
-    from xr_torch.tools import gather
+    kernel bit-exact against its plain version (P1 and P2 also on uniformly
+    random indices, on indices outside the row, P2 on S = 13, a second
+    launch against the first and the launch after the timed ones against
+    the plain version: a launch's scratch leaves nothing to the next), then
+    timed with a cold L2 beside the plain version and the PyTorch call(s)
+    that compute the same function. Returns each kernel's numbers (P1's at
+    its largest shape)."""
+    from xr_torch.tools import gather, timing
     from xr_torch.tools import microbench_gather as mb
     from xr_torch.tools import probe_lanegather as plg
 
-    flush = torch.empty(32 << 20, dtype=torch.int32, device=dev)  # 128 MB
+    flush = timing.flush_buffer(dev)
     int_rate = INT32_LANES * clock_hz
+    rng = np.random.default_rng(2)
     out = {}
 
-    def report(name, label, kernel, plain, library, nbytes, ops, err, library_calls=1):
-        r = {"max_abs_err": err, "ms": cold_ms(kernel, flush), "plain_ms": cold_ms(plain, flush),
+    def cold_ms(fn):
+        """(ms, repetitions) with a cold L2: `flush` (larger than the 50 MB
+        L2) is rewritten before each call, events bracket the call alone,
+        every repetition queued behind a spin on the device."""
+        return timing.device_ms(fn, flush=flush)
+
+    def on(a):
+        return torch.from_numpy(a).to(dev)
+
+    def report(name, label, fn, plain, library, idx, tab, nbytes, ops, err, library_calls=1):
+        want = plain(idx, tab)
+        ms, reps = cold_ms(lambda: fn(idx, tab))
+        _bit_exact(f"{name} {label}, the launch after the timed ones", fn(idx, tab), want)
+        r = {"max_abs_err": err, "ms": ms, "plain_ms": cold_ms(lambda: plain(idx, tab))[0],
              **_bound(nbytes, ops, int_rate)}
-        lib_ms = cold_ms(library, flush)
+        lib_ms = cold_ms(library)[0]
         r["library_ms"] = lib_ms if library_calls == 1 else None
         log(f"gather {name} {label}: bit-exact; kernel {r['ms']!r} ms, plain "
             f"{r['plain_ms']!r} ms, library ({library_calls} call{'s' * (library_calls > 1)}) "
-            f"{lib_ms!r} ms, bound {r['bound_ms']!r} ms by {r['bound_by']} ({nbytes} bytes)")
+            f"{lib_ms!r} ms, bound {r['bound_ms']!r} ms by {r['bound_by']} ({nbytes} bytes); "
+            f"cold L2, {reps} launches queued behind a device spin")
         if library_calls > 1:
             r["library_two_calls_ms"] = lib_ms
         out[name] = r
 
+    def hold(name, label, fn, plain, idx, tab) -> float:
+        """The kernel against its plain version, and a second launch
+        against the first."""
+        first = fn(idx, tab)
+        err = _bit_exact(f"{name} {label}", first, plain(idx, tab))
+        _bit_exact(f"{name} {label}, second launch", fn(idx, tab), first)
+        return err
+
     for width, subl, dtype in plg.SHAPES:
         tab_h, idx_h, _ = plg.make_inputs(width, subl, dtype)
-        tab, idx = torch.from_numpy(tab_h).to(dev), torch.from_numpy(idx_h).to(dev)
+        tab, idx = on(tab_h), on(idx_h)
         S, W = tab.shape
         label = f"({S}, {W}) {np.dtype(dtype).name}"
-        err = _bit_exact(f"lane_gather {label}", gather.lane_gather(idx, tab),
-                         gather.lane_gather_plain(idx, tab))
+        err = hold("lane_gather", label, gather.lane_gather, gather.lane_gather_plain, idx, tab)
+        # one index in eight outside the row, on either side
+        outside = on(rng.integers(-W // 16, W + W // 16, (1, W)).astype(np.int32))
+        err = max(err, hold("lane_gather", label + " indices outside the row",
+                            gather.lane_gather, gather.lane_gather_plain, outside, tab))
         idx64 = idx.long().expand(S, W)  # torch.take_along_dim takes int64 indices only
         if not torch.equal(torch.take_along_dim(tab, idx64, 1), gather.lane_gather(idx, tab)):
             raise AssertionError(f"lane_gather {label}: torch.take_along_dim disagrees")
-        report("lane_gather", label, lambda: gather.lane_gather(idx, tab),
-               lambda: gather.lane_gather_plain(idx, tab),
-               lambda: torch.take_along_dim(tab, idx64, 1),
+        report("lane_gather", label, gather.lane_gather, gather.lane_gather_plain,
+               lambda: torch.take_along_dim(tab, idx64, 1), idx, tab,
                idx.numel() * 4 + 2 * tab.numel() * 4, 0, err)
 
     idx_np, tex_np, quads = mb.make_inputs()
     flat_h, tab_h = mb.lane_layout(idx_np, tex_np, quads)
-    flat, tab = torch.from_numpy(flat_h).to(dev), torch.from_numpy(tab_h).to(dev)
+    flat, tab = on(flat_h), on(tab_h)
     N, (S, PP) = flat.numel(), tab.shape
     label = f"{N} px, table ({S}, {PP})"
-    err = _bit_exact(f"quad_gather {label}", gather.quad_gather(flat, tab),
-                     gather.quad_gather_plain(flat, tab))
+    err = hold("quad_gather", label, gather.quad_gather, gather.quad_gather_plain, flat, tab)
+    # uniformly random indices; one in eight outside the row, also on 13
+    # table rows, which the row gather reads word by word
+    random = on(rng.integers(0, PP, flat_h.shape).astype(np.int32))
+    outside = on(rng.integers(-PP // 16, PP + PP // 16, (997, 131)).astype(np.int32))
+    for what, i, t in (("random indices", random, tab), ("indices outside the row", outside, tab),
+                       ("S = 13", outside, tab[:13].contiguous())):
+        err = max(err, hold("quad_gather", f"{label} {what}", gather.quad_gather,
+                            gather.quad_gather_plain, i, t))
     if not torch.equal(tab[:, flat].sum(0, dtype=torch.int32), gather.quad_gather(flat, tab)):
         raise AssertionError("quad_gather: tab[:, idx].sum(0) disagrees")
-    report("quad_gather", label, lambda: gather.quad_gather(flat, tab),
-           lambda: gather.quad_gather_plain(flat, tab),
-           lambda: tab[:, flat].sum(0, dtype=torch.int32),
+    report("quad_gather", label, gather.quad_gather, gather.quad_gather_plain,
+           lambda: tab[:, flat].sum(0, dtype=torch.int32), flat, tab,
            2 * N * 4 + tab.numel() * 4, N * S, err, library_calls=2)
+    ms, reps = cold_ms(lambda: gather.quad_gather(random, tab))
+    log(f"gather quad_gather {label} random indices: kernel {ms!r} ms; cold L2, {reps} launches "
+        f"queued behind a device spin")
     err = _bit_exact(f"quad_gather1 {label}", gather.quad_gather1(flat, tab),
                      gather.quad_gather1_plain(flat, tab))
     if not torch.equal(tab[0][flat], gather.quad_gather1(flat, tab)):
         raise AssertionError("quad_gather1: tab[0][idx] disagrees")
-    report("quad_gather1", label, lambda: gather.quad_gather1(flat, tab),
-           lambda: gather.quad_gather1_plain(flat, tab), lambda: tab[0][flat],
-           2 * N * 4 + PP * 4, 0, err)
+    report("quad_gather1", label, gather.quad_gather1, gather.quad_gather1_plain,
+           lambda: tab[0][flat], flat, tab, 2 * N * 4 + PP * 4, 0, err)
     return out
 
 

@@ -4,7 +4,8 @@ inputs — the stream kernel (B1) and the list kernel (B2) at 8-, 32-, 64-
 and 128-row tiles and in their cases, both on config4's depth-only shadow
 pass, on a scene where every covered pixel ties on z, on tiles whose walk
 is cut into three or more work items, and launched repeatedly —
-the gather kernels (P1-P3) bit for bit, and frames through Renderer on CUDA
+the gather kernels (P1-P3) bit for bit (P1 and P2 also on indices outside
+the row, on odd shapes and launched repeatedly on two tables in turn), and frames through Renderer on CUDA
 equal to the frames on the CPU (config4/4b: shadow edges may flip, so at
 most max(2, 0.1 %) pixels past 1 LSB, the golden rule). These
 tests need a CUDA device and skip without one. On a machine with a card
@@ -245,3 +246,48 @@ def test_gather_kernels_match_plain(cuda, name):
         assert kernels.launches[name] == n0 + 1
         want = getattr(gather, name + "_plain")(idx, t)
         assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("S", [13, 16, 32])
+@pytest.mark.parametrize("kind", ["uniform", "outside"])
+def test_quad_gather_rows_and_repeated_launches(cuda, S, kind):
+    """P2 gathers from the table it has just written row-major: 13 table
+    rows take the word-by-word walk of a row; a launch's scratch leaves
+    nothing to the next (another table in between, then the first again)."""
+    rng = np.random.default_rng(S)
+    PP = 5003
+    lo, hi = (0, PP) if kind == "uniform" else (-300, PP + 300)
+    tabs = [torch.from_numpy(rng.integers(0, 2**32, (S, PP), dtype=np.uint32).view(np.int32))
+            for _ in range(2)]
+    idx = torch.from_numpy(rng.integers(lo, hi, (9, 7, 129)).astype(np.int32))
+    wants = [gather.quad_gather_plain(idx, t) for t in tabs]
+    dev_idx, dev_tabs = idx.to(cuda), [t.to(cuda) for t in tabs]
+    n0 = kernels.launches["quad_gather"]
+    for k in (0, 1, 0, 0, 1):
+        got = gather.quad_gather(dev_idx, dev_tabs[k])
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), wants[k])
+        assert torch.equal(got.cpu(), gather.quad_gather_rows_plain(idx, tabs[k]))
+    assert kernels.launches["quad_gather"] == n0 + 5
+
+
+@pytest.mark.parametrize("S,W", [(8, 8192), (13, 5003), (32, 9999), (40, 641)])
+@pytest.mark.parametrize("kind", ["uniform", "outside"])
+def test_lane_gather_shapes_and_repeated_launches(cuda, S, W, kind):
+    rng = np.random.default_rng(S + W)
+    lo, hi = (0, W) if kind == "uniform" else (-W // 16, W + W // 16)
+    tabs = [torch.from_numpy(rng.integers(0, 2**32, (S, W), dtype=np.uint32).view(np.int32))
+            for _ in range(2)]
+    idx = torch.from_numpy(rng.integers(lo, hi, (1, W)).astype(np.int32))
+    wants = [gather.lane_gather_plain(idx, t) for t in tabs]
+    dev_idx, dev_tabs = idx.to(cuda), [t.to(cuda) for t in tabs]
+    n0 = kernels.launches["lane_gather"]
+    for k in (0, 1, 0, 0, 1):
+        got = gather.lane_gather(dev_idx, dev_tabs[k])
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), wants[k])
+    assert kernels.launches["lane_gather"] == n0 + 5
+    f32 = dev_tabs[0].view(torch.float32)
+    got = gather.lane_gather(dev_idx, f32)
+    assert got.dtype == torch.float32
+    assert torch.equal(got.cpu().view(torch.int32), wants[0])

@@ -5,7 +5,10 @@ must be bit-exact. The tools define their kernels inside ``main()`` and
 ``bench()``; the bodies here are those kernels', at small shapes. Also: the
 public functions launch nothing on the CPU, an index outside the table row
 reads as 0, the launch wrappers refuse CPU tensors, and the tools' inputs
-are the reference tools' inputs."""
+are the reference tools' inputs. The ``*_rows_plain`` functions (the
+algorithm of the kernels that gather from the table written row-major) are
+held to the definitions and to the Pallas kernels alike. Tolerance: none,
+the gathers copy bits."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +18,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from xr_torch import kernels
-from xr_torch.tools import gather, microbench_gather, probe_lanegather
+from xr_torch.tools import gather, microbench_gather, probe_lanegather, sweep_gather
 
 torch.set_num_threads(1)
 
@@ -87,6 +90,8 @@ def test_lane_gather_matches_pallas(S, dtype):
     assert not any(kernels.launches.values())
     assert got.dtype == tab.numpy().dtype
     assert np.array_equal(got.view(want.dtype), want)
+    rows = gather.lane_gather_rows_plain(torch.from_numpy(idx_np), tab).numpy()
+    assert rows.dtype == got.dtype and np.array_equal(rows.view(want.dtype), want)
 
 
 @pytest.mark.parametrize("one_channel", [False, True], ids=["p2_16ch", "p3_1ch"])
@@ -98,8 +103,11 @@ def test_quad_gathers_match_pallas(one_channel):
     got = fn(torch.from_numpy(flat_np), torch.from_numpy(tab_np.view(np.int32))).numpy()
     assert not any(kernels.launches.values())
     assert got.shape == want.shape and np.array_equal(got.view(np.uint32), want)
-    if not one_channel:  # and numpy's wrapping u32 sum
+    if not one_channel:  # and numpy's wrapping u32 sum, and the row algorithm
         assert np.array_equal(want, tab_np[:, flat_np].sum(0, dtype=np.uint32))
+        rows = gather.quad_gather_rows_plain(torch.from_numpy(flat_np),
+                                             torch.from_numpy(tab_np.view(np.int32))).numpy()
+        assert rows.shape == want.shape and np.array_equal(rows.view(np.uint32), want)
 
 
 def test_out_of_row_index_reads_zero():
@@ -109,6 +117,78 @@ def test_out_of_row_index_reads_zero():
     assert lane.tolist() == [[1, 0, 0, 0], [17, 0, 0, 0]]
     assert gather.quad_gather(idx, tab).tolist() == [[18, 0, 16 + 32, 0]]
     assert gather.quad_gather1(idx, tab).tolist() == [[1, 0, 16, 0]]
+
+
+def _indices(kind, rng, shape, width):
+    """uniform: anywhere in the row; coherent: the fetch tool's pattern
+    (``tools/microbench_gather.py:41-54``: a stride of 37 with a jitter of
+    64) at this width; outside: one in eight outside the row, on either
+    side, negative ones among them."""
+    n = int(np.prod(shape))
+    if kind == "uniform":
+        idx = rng.integers(0, width, n)
+    elif kind == "coherent":
+        idx = ((np.arange(n, dtype=np.int64) * 37) % max(width // 2, 1)
+               + rng.integers(0, 64, n)) % width
+    else:
+        idx = rng.integers(-(width // 16) - 2, width + width // 16 + 2, n)
+        idx[:3] = (-1, width, -(2**31))
+    return torch.from_numpy(idx.astype(np.int32).reshape(shape))
+
+
+def _table(rng, S, width, dtype=np.uint32):
+    tab = rng.integers(0, 2**32, (S, width), dtype=np.uint32)
+    if dtype == np.float32:  # any bit pattern, NaNs among them: the gather copies bits
+        return torch.from_numpy(tab.view(np.float32))
+    return torch.from_numpy(tab.view(np.int32))
+
+
+def _same_bits(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "coherent", "outside"])
+@pytest.mark.parametrize("S", [1, 8, 13, 16, 32])
+def test_quad_gather_rows_algorithm_is_the_definition(S, kind):
+    """N and PP that are no multiples of 32 or 128."""
+    rng = np.random.default_rng(100 + S)
+    tab = _table(rng, S, 1000 + S)
+    idx = _indices(kind, rng, (7, 11, 13), tab.shape[1])
+    want = gather.quad_gather_plain(idx, tab)
+    _same_bits(gather.quad_gather_rows_plain(idx, tab), want)
+    u = tab.numpy().view(np.uint32)
+    i = idx.numpy().astype(np.int64)
+    ok = (i >= 0) & (i < tab.shape[1])
+    ref = np.where(ok, u[:, np.where(ok, i, 0)].sum(0, dtype=np.uint32), 0).astype(np.uint32)
+    assert np.array_equal(want.numpy().view(np.uint32), ref)
+    assert bool(ok.all()) == (kind != "outside")
+
+
+@pytest.mark.parametrize("kind", ["uniform", "coherent", "outside"])
+@pytest.mark.parametrize("S,dtype", [(1, np.uint32), (8, np.uint32), (13, np.float32),
+                                     (16, np.uint32), (32, np.float32)])
+def test_lane_gather_rows_algorithm_is_the_definition(S, dtype, kind):
+    """W that is no multiple of 32 or 128."""
+    rng = np.random.default_rng(200 + S)
+    W = 1003 + S
+    tab = _table(rng, S, W, dtype)
+    idx = _indices(kind, rng, (1, W), W)
+    want = gather.lane_gather_plain(idx, tab)
+    _same_bits(gather.lane_gather_rows_plain(idx, tab), want)
+    bits = tab.numpy().view(np.uint32)
+    i = idx.numpy()[0].astype(np.int64)
+    ok = (i >= 0) & (i < W)
+    ref = np.where(ok[None, :], bits[:, np.where(ok, i, 0)], 0).astype(np.uint32)
+    assert np.array_equal(want.numpy().view(np.uint32), ref)
+
+
+@pytest.mark.parametrize("S,W", [(1, 1), (13, 77), (16, 128), (32, 1000), (40, 65)])
+def test_table_rows_is_the_transpose(S, W):
+    tab = _table(np.random.default_rng(S * W), S, W)
+    rows = gather.table_rows_plain(tab)
+    assert rows.shape == (W, S) and rows.is_contiguous()
+    assert np.array_equal(rows.numpy(), tab.numpy().T)
 
 
 @pytest.mark.parametrize("name", ["lane_gather", "quad_gather", "quad_gather1"])
@@ -154,6 +234,17 @@ def test_tool_inputs_are_the_reference_tools_inputs():
 def test_tools_need_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    for tool in (probe_lanegather, microbench_gather):
+    for tool in (probe_lanegather, microbench_gather, sweep_gather):
         with pytest.raises(SystemExit):
             tool.main()
+
+
+def test_sweep_variants_name_macros_of_the_source():
+    """Every macro a variant of the sweep sets is one csrc/gather.cu reads."""
+    src = (kernels.CSRC / "gather.cu").read_text()
+    assert sweep_gather.VARIANTS[0] == sweep_gather.VARIANTS[-1] == "P1_DESIGN=0,P2_DESIGN=0"
+    assert "" in sweep_gather.VARIANTS  # the source as it stands
+    for spec in sweep_gather.VARIANTS:
+        for flag in sweep_gather._flags(spec):
+            assert flag.startswith("-DXR_")
+            assert flag[2:].split("=")[0] in src, flag

@@ -9,7 +9,9 @@ Kernels (one launch wrapper each):
 The two visibility kernels share their record fold (csrc/fold_records.cuh):
 a launch is a small clear kernel followed by the fold kernel over the work
 items the prep lists, counted as one launch. The gathers carry the
-texture-fetch microbenchmarks (xr_torch/tools/).
+texture-fetch microbenchmarks (xr_torch/tools/); a gather launch may be two
+kernels too (quad_gather first writes the table row-major into scratch that
+the wrapper allocates, then gathers whole rows), counted as one launch.
 
 The sources under ``xr_torch/csrc/`` are compiled at first use with nvcc,
 one process per source started together, and linked into one shared
@@ -115,10 +117,12 @@ def library() -> ctypes.CDLL:
             lib.xr_vis_stream.restype = i
             lib.xr_vis_lists.argtypes = [p] * 11 + [i] * 10 + [p]
             lib.xr_vis_lists.restype = i
-            lib.xr_lane_gather.argtypes = [p, p, p, i, i, p]
-            lib.xr_quad_gather.argtypes = [p, p, p, i64, i, i, p]
+            lib.xr_lane_gather.argtypes = [p, p, p, p, i, i, p]
+            lib.xr_quad_gather.argtypes = [p, p, p, p, i64, i, i, p]
             lib.xr_quad_gather1.argtypes = [p, p, p, i64, i, p]
-            for fn in (lib.xr_lane_gather, lib.xr_quad_gather, lib.xr_quad_gather1):
+            lib.xr_lane_gather_scratch.argtypes = lib.xr_quad_gather_scratch.argtypes = [i, i]
+            for fn in (lib.xr_lane_gather, lib.xr_quad_gather, lib.xr_quad_gather1,
+                       lib.xr_lane_gather_scratch, lib.xr_quad_gather_scratch):
                 fn.restype = i
             lib.xr_cuda_error_string.argtypes = [i]
             lib.xr_cuda_error_string.restype = ctypes.c_char_p
@@ -251,35 +255,53 @@ def _gather_table(tab, dtypes=(torch.int32,)):
         raise ValueError(f"tab: shape {tuple(tab.shape)}, expected a non-empty (S, W)")
 
 
+def _scratch(needed, tab):
+    """The table's size of uninitialised scratch where the launch writes
+    the table row-major first, else nothing. Nothing is kept between
+    launches."""
+    return torch.empty_like(tab) if needed(*tab.shape) else None
+
+
 def lane_gather(idx, tab):
     """Launch the lane gather (csrc/gather.cu) on the current stream:
     out[s, j] = tab[s, idx[0, j]] — 0 where idx[0, j] is outside [0, W).
+    A table of 8, 16 or 32 rows that is large enough to pay for a second
+    kernel is first written row-major into scratch allocated here, and a
+    column's S values are gathered as one line (two kernels, counted as one
+    launch); any other table is read in place, one thread an element.
 
     idx (1, W) i32; tab (S, W) i32 (u32 bits) or f32, on one CUDA device.
     Returns (S, W) of tab's dtype."""
     _gather_table(tab, (torch.int32, torch.float32))
     S, W = tab.shape
     _check("idx", idx, torch.int32, (1, W), tab.device)
+    lib = library()
     out = torch.empty_like(tab)
-    _launch("lane_gather", library().xr_lane_gather, tab.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), S, W, torch.cuda.current_stream(tab.device).cuda_stream)
+    scratch = _scratch(lib.xr_lane_gather_scratch, tab)
+    _launch("lane_gather", lib.xr_lane_gather, tab.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(), S, W,
+            torch.cuda.current_stream(tab.device).cuda_stream)
     return out
 
 
 def quad_gather(idx, tab):
     """Launch the quad gather (csrc/gather.cu) on the current stream:
     out[...] = sum over s of tab[s, idx[...]] in u32, wrapping — 0 where the
-    index is outside [0, PP).
+    index is outside [0, PP). Two kernels, counted as one launch: the table
+    is written row-major, (PP, S), into scratch allocated here, and the
+    gather reads each index's S words as one row. Every launch transposes.
 
     idx (...) i32, any shape; tab (S, PP) i32 (u32 bits), on one CUDA
     device. Returns idx's shape, i32 (u32 bits)."""
     _gather_table(tab)
     S, PP = tab.shape
     _check("idx", idx, torch.int32, None, tab.device)
+    lib = library()
     out = torch.empty_like(idx)
-    _launch("quad_gather", library().xr_quad_gather, tab.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), idx.numel(), S, PP,
-            torch.cuda.current_stream(tab.device).cuda_stream)
+    scratch = _scratch(lib.xr_quad_gather_scratch, tab)
+    _launch("quad_gather", lib.xr_quad_gather, tab.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            idx.numel(), S, PP, torch.cuda.current_stream(tab.device).cuda_stream)
     return out
 
 

@@ -3,6 +3,13 @@ layouts: each public function launches its CUDA kernel (csrc/gather.cu) on
 CUDA tensors, and takes its plain PyTorch version (``*_plain``) only for
 tensors on the CPU.
 
+The ``*_plain`` functions are the definitions. The ``*_rows_plain`` ones
+are the algorithm of the kernels that first write the channel-major table
+row-major (``table_rows_plain``: (S, W) -> (W, S), so that the S values of
+one index are one contiguous row) and gather whole rows: the 16-channel
+quad gather runs it on the card, the lane gather as a variant of the sweep
+tool. They equal the definitions bit for bit.
+
 u32 tables travel as int32 bit patterns (torch's uint32 has few kernels);
 an index outside the table row reads as 0 in the kernels and in the plain
 versions alike.
@@ -36,9 +43,36 @@ def quad_gather_plain(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     16-channel gather. The sum runs in int64 (sign-extended terms are
     congruent mod 2^32 to the u32 ones) and is cut back to its low 32 bits."""
     i, ok = _in_row(idx, tab.shape[1])
-    s = tab[:, i].sum(0, dtype=I64) & 0xFFFFFFFF
-    s = torch.where(s >= 2**31, s - 2**32, s).to(I32)
-    return torch.where(ok, s, 0)
+    return torch.where(ok, _wrap_u32(tab[:, i].sum(0, dtype=I64)), 0)
+
+
+def _wrap_u32(s: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of an int64 sum as int32 bits."""
+    s = s & 0xFFFFFFFF
+    return torch.where(s >= 2**31, s - 2**32, s).to(I32)
+
+
+def table_rows_plain(tab: torch.Tensor) -> torch.Tensor:
+    """The (S, W) table row-major, (W, S): what the transpose kernel writes
+    into the launch's scratch."""
+    return tab.t().contiguous()
+
+
+def quad_gather_rows_plain(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """``quad_gather_plain`` by the kernels' algorithm: the table row-major,
+    each index's row of S words gathered as one and summed."""
+    i, ok = _in_row(idx, tab.shape[1])
+    rows = table_rows_plain(tab)
+    return torch.where(ok, _wrap_u32(rows[i].sum(-1, dtype=I64)), 0)
+
+
+def lane_gather_rows_plain(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """``lane_gather_plain`` by the transposed design: the table row-major,
+    column idx[0, j]'s S words gathered as one row, the (W, S) result
+    written back channel-major."""
+    i, ok = _in_row(idx[0], tab.shape[1])
+    rows = table_rows_plain(tab)
+    return torch.where(ok[:, None], rows[i], 0).t().contiguous()
 
 
 def quad_gather1_plain(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,11 @@
 
 The reference's inputs (numpy, seed 0): 1920x1080 = 2,073,600 pixel
 indices with config3-like coherence into a quad table of 2 textures x
-87,381 entries x 13 u32 texels. It times, by CUDA events, the reference's
-XLA fetch variants written as the same torch indexing expressions (2-D vs
+87,381 entries x 13 u32 texels. It times, by CUDA events around 20 calls
+back to back (a warm L2, the reference's protocol; ``chip_smoke.py`` times
+the kernels with a cold one) that are queued behind a spin on the device
+(``timing.device_ms``: the device's time, not the host's pace), the
+reference's XLA fetch variants written as the same torch indexing expressions (2-D vs
 flat index, row widths 13/16/4, two row fetches, sort + gather + unsort) —
 the yardstick of what row width and index form cost on this card — and
 then the two lane-gather kernels of the reference (csrc/gather.cu) on the
@@ -21,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from xr_torch.tools import gather
+from xr_torch.tools import gather, timing
 
 NPIX = 1920 * 1080  # 2,073,600
 P = 87381  # 256^2 + 128^2 + ... + 1 (quad-pyramid entries per texture)
@@ -54,18 +57,12 @@ def lane_layout(idx, tex, quads):
 
 
 def timed(fn, *args, iters=20, name=""):
-    """Mean device time of fn(*args) by CUDA events; prints the reference's
+    """Mean device time of fn(*args) with a warm L2; prints the reference's
     line. Returns seconds."""
-    fn(*args)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn(*args)
-    end.record()
-    torch.cuda.synchronize()
-    dt = start.elapsed_time(end) / iters / 1e3
-    print(f"{name:28s} {dt*1e3:8.3f} ms   {dt*1e9/NPIX:6.2f} ns/px", flush=True)
+    ms, reps = timing.device_ms(lambda: fn(*args), reps=iters)
+    dt = ms / 1e3
+    print(f"{name:28s} {dt*1e3:8.4f} ms   {dt*1e9/NPIX:6.3f} ns/px   "
+          f"(warm L2, {reps} calls queued behind a device spin)", flush=True)
     return dt
 
 

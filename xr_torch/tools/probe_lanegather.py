@@ -7,9 +7,12 @@ For each of the reference's four shapes — (S, W) = (8, 8192) u32,
 multiple of 128 — builds the reference's table and index (numpy, seed 0),
 runs the lane gather ``out[s, j] = tab[s, idx[0, j]]`` through its CUDA
 kernel (csrc/gather.cu), checks it against numpy's take_along_axis, and
-prints its time by CUDA events as the reference prints its own. A kernel
-that fails to build, launch or match ends the run with an error; there is
-no CPU fallback.
+prints its time as the reference prints its own: the mean of 20 launches
+back to back, so the L2 is warm (``chip_smoke.py`` times the same kernel
+with a cold one). The launches are queued behind a spin on the device
+(``timing.device_ms``), so the time is the device's and not the pace at
+which the host launches. A kernel that fails to build, launch or match ends
+the run with an error; there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from xr_torch.tools import gather
+from xr_torch.tools import gather, timing
 
 SHAPES = ((8192, 8, np.uint32), (8192, 16, np.uint32), (75616, 16, np.uint32),
           (75616, 32, np.float32))
@@ -45,18 +48,10 @@ def bench(width: int, subl: int, dtype, device, iters: int = 20) -> dict:
     ref = np.take_along_axis(tab_np, np.broadcast_to(idx_h, (S, W)), axis=1)
     ref = ref.view(np.int32) if dtype == np.uint32 else ref.astype(np.float32)
     ok = bool(np.array_equal(out, ref))
-    gather.lane_gather(idx, tab)  # warm
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize(device)
-    start.record()
-    for _ in range(iters):
-        gather.lane_gather(idx, tab)
-    end.record()
-    torch.cuda.synchronize(device)
-    ms = start.elapsed_time(end) / iters
+    ms, reps = timing.device_ms(lambda: gather.lane_gather(idx, tab), reps=iters)
     name = np.dtype(dtype).name
-    print(f"W={W} S={S} {name}: ok={ok} {ms:.3f} ms ({ms * 1e6 / (S * W):.3f} ns/elem)",
-          flush=True)
+    print(f"W={W} S={S} {name}: ok={ok} {ms:.4f} ms ({ms * 1e6 / (S * W):.4f} ns/elem; "
+          f"warm L2, {reps} launches queued behind a device spin)", flush=True)
     return {"W": W, "S": S, "dtype": name, "ok": ok, "ms": ms, "ns_elem": ms * 1e6 / (S * W)}
 
 

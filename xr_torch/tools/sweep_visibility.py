@@ -33,7 +33,6 @@ VARIANTS = (
     "512,256,2", "512,128,2,nofold", "512,128,2,nomerge", "512,128,2,nofold,nomerge",
     "512,128,2,nofold,nomerge,nostage", "512,128,2",
 )
-SPIN_CYCLES = 40_000_000  # ~20 ms of an H100's SM clock
 CASES = (("vis_stream", "config3", False), ("vis_lists", "config2", False),
          ("vis_stream", "config4", True), ("vis_stream", "config4", False))
 
@@ -67,24 +66,11 @@ def _inputs(dev, kernel, name, shadow):
     return prepare(tri, cfg), cfg, launch, plain
 
 
-def _device_ms(fn, reps: int = 50) -> float:
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES)  # the host enqueues the launches meanwhile
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def run_variant(spec: str) -> dict:
     """Build one variant in this process and time the four cases."""
     from xr_torch import kernels
     from xr_torch.raster import records
+    from xr_torch.tools import timing
 
     threads, item, min_ctas, *probes = spec.split(",")
     kernels.NVCC_FLAGS += [f"-DXR_THREADS={threads}", f"-DXR_ITEM={item}",
@@ -108,7 +94,9 @@ def run_variant(spec: str) -> dict:
         exact = torch.equal(got[0], want[0]) and torch.equal(got[1].view(torch.int32),
                                                              want[1].view(torch.int32))
         label = f"{kernel} {name}{' shadow pass' if shadow else ''}"
-        row[label] = {"ms": _device_ms(lambda: launch(inp, cfg)), "exact": exact}
+        # 50 launches (L2 warm) that the host enqueues while the device spins
+        ms = timing.device_ms(lambda: launch(inp, cfg), reps=50, warmup=3)[0]
+        row[label] = {"ms": ms, "exact": exact}
     return row
 
 
