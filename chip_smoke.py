@@ -17,7 +17,13 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      frame; both kernels on config4's two full passes (the shadow pass,
      1024x1024 from the light, depth only, and the 1920x1080 camera pass,
      64x128 tiles) and on config4b's camera pass (the transparent panes
-     masked out); times both kernels and their plain versions on the full
+     masked out); the stream kernel on config6's two full passes (the
+     loaded courtyard, 96,456 triangles: the 1024x1024 shadow pass and the
+     1920x1080 camera pass) and on config5's full 1920x1080 frame
+     (1,003,008 triangles in) at t = 3.0 as the preset sets it (z_earlyout
+     on) and with the flag off, which must give the same bits (the plain
+     fold over 431,358 record slots is compared once and timed by that one
+     call if it takes over 5 s); times both kernels and their plain versions on the full
      frames, beside the bound of each launch (the bytes and the integer
      operations no exact design avoids, _vis_work), and holds the output of
      the launch after the 50 timed ones against the plain version and
@@ -32,10 +38,11 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      spin on the device, beside its plain version, the one PyTorch call
      that computes it (P1, P3; two calls for P2) and its bound
   5. golden: config1 (brute force), config2 (128x128 tiles, stream kernel),
-     config3, config4 and config4b (two passes) at golden size through
-     Renderer on the card against tests/goldens/ (<= 1 LSB; config4/4b at
-     most max(2, 0.1 %) pixels past it, the shadow-edge rule of
-     tests/test_goldens.py), coverage within 1e-6
+     config3, config4 and config4b (two passes), config5 (a 64x64 terrain,
+     num_shards 1), config6 and config6cap (two passes) at golden size
+     through Renderer on the card against tests/goldens/ (<= 1 LSB;
+     config4/4b/6/6cap at most max(2, 0.1 %) pixels past it, the shadow-edge
+     rule of tests/test_goldens.py), coverage within 1e-6
   6. main path, each run with the launch counts set to 0 just before it
      and read just after, one warm-up frame first:
      - config3 at 1920x1080 (100,352 triangles), 30 frames through
@@ -51,6 +58,18 @@ Phases, each of which raises on failure (exit code != 0, no final line):
        identical color, depth and stats
      - config4b (config4 with two blended panes) at 1920x1080, 30 frames on
        config4's cameras: no blend overflow, config4's depth, other colors
+     - config6 (the courtyard loaded from its OBJ, MTL and PNG files, Phong
+       with a 1024x1024 shadow map, a ragged texture pyramid, one clamped
+       map) at 1920x1080, 30 frames, the stream kernel twice a frame; then
+       config6cap (the texture-area cap) on the same cameras: config6's
+       depth and stats, other colors at some pixels
+     - config5 (1,003,008 triangles: a 708x708 terrain and 40 boxes) at
+       1920x1080 with num_shards=1, 10 frames at t = 1.0 ... 10.0 of its
+       frozen camera path, the stream kernel once a frame, every overflow
+       counter 0; prints the peak device memory
+     - one config3 frame through present() + flush() (the host copy started
+       when the frame is queued, into pinned memory) against step() +
+       readback(): the same bytes
      - the gather microbenchmarks: xr_torch.tools.probe_lanegather and
        xr_torch.tools.microbench_gather, as run from the command line
      prints ms/frame of each and the device time of each stage, timed on
@@ -62,6 +81,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -124,14 +144,24 @@ def _manifest(name: str) -> dict:
         return json.load(f)[name]
 
 
+SHADOW_EDGE = ("config4", "config4b", "config6", "config6cap")  # tests/test_goldens.py:51-56
+
+
+@functools.lru_cache(maxsize=None)
 def _preset(name: str, full: bool = False):
-    """config1/config2 as published; config3's terrain is 48x48 quads at
-    golden size and 224x224 (100,352 triangles) in full."""
+    """The presets as published, host side (built once a run); config3's
+    terrain is 48x48 quads at golden size and 224x224 (100,352 triangles)
+    in full, config5's 64x64 and 708x708 (1,003,008 triangles with its
+    boxes); config5 runs with num_shards=1, the golden's own override."""
     from xr_torch.scene import presets
 
     if name == "config3":
         n = 224 if full else 48
         return presets.config3_terrain(n, n)
+    if name == "config5":
+        n = 708 if full else 64
+        p = presets.config5_flythrough(n, n)
+        return p._replace(config=dataclasses.replace(p.config, num_shards=1))
     return presets.ALL_PRESETS[name]()
 
 
@@ -278,8 +308,10 @@ def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clo
     inp = prepare(tri, cfg)
     tk, zk = launch(inp, cfg)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     tp, zp = plain(inp, cfg)
     torch.cuda.synchronize()
+    plain_once_ms = (time.perf_counter() - t0) * 1e3
     label = f"{kernel} [{name}] {cfg.width}x{cfg.height} tiles {cfg.tile_h}x{cfg.tile_w}"
     _same_vis(label, "the plain version", (tk, zk), (tp, zp))
     # the merge order varies from launch to launch; the output must not
@@ -301,12 +333,16 @@ def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clo
         # after 50 launches in a row the scratch must still be the kernel's own
         _same_vis(label, "the plain version, after the timed launches", launch(inp, cfg),
                   (tp, zp))
-        out["plain_ms"] = cuda_ms(lambda: plain(inp, cfg), reps=5, warmup=1)
+        # a plain fold of seconds is not run six more times: its one call counts
+        once = plain_once_ms > 5e3
+        out["plain_ms"] = plain_once_ms if once else cuda_ms(lambda: plain(inp, cfg), reps=5,
+                                                            warmup=1)
         pairs, pixels, nbytes = _vis_work(kernel, inp, cfg)
         out.update(_bound(nbytes, pixels * EDGE_OPS + pairs * DECODE_OPS,
                           INT32_LANES * clock_hz))
         out.update(pairs=pairs, bbox_pixels=pixels, bytes=nbytes)
-        line += (f"; kernel {out['ms']!r} ms, plain {out['plain_ms']!r} ms, bound "
+        line += (f"; kernel {out['ms']!r} ms, plain {out['plain_ms']!r} ms"
+                 f"{' (the one compared call, host clock)' if once else ''}, bound "
                  f"{out['bound_ms']!r} ms by {out['bound_by']} ({pairs} (tile, record) "
                  f"pairs, {pixels} bbox pixels, {nbytes} bytes)")
     log(line)
@@ -395,6 +431,28 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
                         view_proj=view_proj)
                 if r["dropped"] or r["bg"] == cfg.width * cfg.height:
                     raise AssertionError(f"{label}: {r}")
+
+    # config6: the loaded courtyard's two passes (32x128 tiles, large bucket
+    # 4096) through the stream kernel
+    p, cam, scene = _setup(dev, _preset("config6"), 1920, 1080, 0.3)
+    light = tuple(convert.tensor(m, dev) for m in light_matrices_for_scene(scene))
+    for label, cfg, view_proj in (("config6 shadow pass", shadow_config(p.config), light),
+                                  ("config6 camera pass", p.config, None)):
+        r = run("vis_stream", p, {}, scene, cam, label, time_it=True, cfg=cfg, view_proj=view_proj)
+        if r["dropped"] or r["bg"] == cfg.width * cfg.height:
+            raise AssertionError(f"{label}: {r}")
+
+    # config5: the deep scene's full frame, 431,358 record slots; as the
+    # preset sets it (z_earlyout on) and with the flag off: the same bits
+    p, cam, scene = _setup(dev, _preset("config5", full=True), 1920, 1080, 3.0)
+    if scene.mesh.num_triangles != 1_003_008 or not p.config.z_earlyout:
+        raise AssertionError("config5 must have 1,003,008 triangles and set z_earlyout")
+    r = run("vis_stream", p, {}, scene, cam, "full config5 z_earlyout", time_it=True)
+    r0 = run("vis_stream", p, {"z_earlyout": False}, scene, cam, "full config5 no z_earlyout")
+    for x in (r, r0):
+        if x["dropped"] or x["bg"] != r["bg"]:
+            raise AssertionError(f"full config5: {x}")
+    del scene
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "pairs", "bbox_pixels", "bytes")
     return {
@@ -521,7 +579,8 @@ def phase_golden(dev) -> None:
     from xr_torch import Renderer, kernels
     from xr_torch.core.image import read_png
 
-    for name in ("config1", "config2", "config3", "config4", "config4b"):
+    for name in ("config1", "config2", "config3", "config4", "config4b", "config5", "config6",
+                 "config6cap"):
         m = _manifest(name)
         p, cam, scene = _setup(dev, _preset(name), m["width"], m["height"], m["t"],
                                **m["overrides"])
@@ -535,14 +594,14 @@ def phase_golden(dev) -> None:
         cov = float((frame.depth < 1.0).mean())
         # shadow edges: tests/test_goldens.py allows max(2, 0.1 %) pixels
         npix = m["width"] * m["height"]
-        allowed = max(2, int(npix * 0.001)) if name.startswith("config4") else 0
+        allowed = max(2, int(npix * 0.001)) if name in SHADOW_EDGE else 0
         log(f"golden {name} {m['width']}x{m['height']}: {bad} px > 1 LSB (allowed {allowed}, "
             f"max {diff.max()}), coverage {cov!r} vs {m['coverage']!r}; launches {launched}")
         if bad > allowed or abs(cov - m["coverage"]) >= 1e-6:
             raise AssertionError(f"golden mismatch: {name}")
         # config1 renders by brute force (no kernel); the others stream,
-        # config4/4b twice (the shadow map, then the frame)
-        want = {"config1": 0, "config4": 2, "config4b": 2}.get(name, 1)
+        # the shadow-mapped ones twice (the shadow map, then the frame)
+        want = 0 if name == "config1" else 2 if name in SHADOW_EDGE else 1
         if launched["vis_stream"] != want or launched["vis_lists"]:
             raise AssertionError(f"{name}: unexpected kernel launches {launched}")
 
@@ -726,7 +785,85 @@ def phase_main_path(dev) -> dict:
     _log_run("config4b (blend)", p.config, scene.mesh.num_triangles, times, launches)
     _log_stages("config4b t=0.3", _stage_times(dev, p, cams[5], scene))
     del runs, frames
+
+    # config6: the courtyard from its files, Phong with a shadow map, a
+    # ragged pyramid with one clamped map; then the texture-area cap on the
+    # same cameras, which may only change colors
+    runs = {}
+    for name in ("config6", "config6cap"):
+        p, _, scene = _setup(dev, _preset(name), 1920, 1080, 0.0)
+        if scene.mesh.num_triangles != 96_456 or scene.materials.tex_addr is None:
+            raise AssertionError(f"{name} must have 96,456 triangles and a clamped map")
+        cams = [p.animate(0.05 * (i + 1))[0] for i in range(30)]
+        times, frames, launches = _run_frames(dev, scene, p.config, cams)
+        if launches["vis_stream"] != 2 * len(cams) or launches["vis_lists"]:
+            raise AssertionError(f"{name}: launches {launches} in {len(cams)} frames")
+        _coverage_between(frames, 0.3, 1.0)
+        count(launches)
+        rows = scene.textures.quads.shape[0]
+        _log_run(f"{name} ({rows} quad rows)", p.config, scene.mesh.num_triangles, times, launches)
+        _log_stages(f"{name} t=0.3", _stage_times(dev, p, cams[5], scene))
+        runs[name] = frames
+    log("frame stats (t=0.05): "
+        + ", ".join(f"{k}={int(v)}" for k, v in runs["config6"][0].stats.items()))
+    changed = []
+    for i, (f, g) in enumerate(zip(runs["config6"], runs["config6cap"])):
+        if not np.array_equal(f.depth, g.depth) or any(
+                int(f.stats[k]) != int(g.stats[k]) for k in f.stats):
+            raise AssertionError(f"config6cap frame {i}: depth or stats are not config6's")
+        changed.append(float((f.color != g.color).any(axis=-1).mean()))
+    if min(changed) <= 0.0:
+        raise AssertionError("config6cap: a frame has config6's colors, the cap did nothing")
+    log(f"config6cap: depth and stats are config6's in all {len(changed)} frames; the cap "
+        f"changes {min(changed):.4%} to {max(changed):.4%} of the pixels")
+    del runs, frames
+
+    # config5: the deep scene along its frozen camera path, one device
+    p, _, scene = _setup(dev, _preset("config5", full=True), 1920, 1080, 0.0)
+    cams = [p.animate(1.0 * (i + 1))[0] for i in range(10)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, frames, launches = _run_frames(dev, scene, p.config, cams)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches["vis_stream"] != len(cams) or launches["vis_lists"]:
+        raise AssertionError(f"config5: launches {launches} in {len(cams)} frames")
+    _coverage_between(frames, 0.3, 1.0)
+    count(launches)
+    _log_run("config5 (num_shards=1, t=1..10)", p.config, scene.mesh.num_triangles, times,
+             launches)
+    log("config5 tris_setup by frame: " + ", ".join(str(int(f.stats["tris_setup"])) for f in frames)
+        + f"; record capacity {_capacity(scene, p.config)}; peak device memory "
+        f"{peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
+    _log_stages("config5 t=3.0", _stage_times(dev, p, cams[2], scene))
+    del frames
     return total
+
+
+def _capacity(scene, cfg) -> int:
+    from xr_torch.pipeline.geometry import clip_capacity
+
+    return clip_capacity(scene.mesh.num_triangles, cfg)
+
+
+def phase_present(dev) -> None:
+    """One config3 frame through present() and flush() against step() and
+    readback(): the host frames hold the same bytes."""
+    from xr_torch import Renderer
+
+    p, cam, scene = _setup(dev, _preset("config3", full=True), 1920, 1080, 0.3)
+    r = Renderer(scene, p.config, dev)
+    want = r.readback(r.step(scene, cam))
+    if r.present(r.step(scene, cam)) is not None:
+        raise AssertionError("present: the first call must return None")
+    got = r.present(r.step(scene, p.animate(0.9)[0]))
+    last = r.flush()
+    same = (got.color.tobytes() == want.color.tobytes()
+            and got.depth.tobytes() == want.depth.tobytes()
+            and set(got.stats) == set(want.stats)
+            and all(got.stats[k].tobytes() == want.stats[k].tobytes() for k in want.stats))
+    if not same or np.array_equal(last.color, want.color) or r.flush() is not None:
+        raise AssertionError("present/flush: the host frame is not readback's")
+    log("present: config3 1920x1080 through present() + flush() holds the bytes of "
+        "step() + readback() (color, depth, stats)")
 
 
 def _same_frames(label, a_frames, b_frames) -> None:
@@ -766,6 +903,7 @@ def main() -> int:
     kv.update(phase_gathers(dev, clock_hz))
     phase_golden(dev)
     launches = phase_main_path(dev)
+    phase_present(dev)
     for k, v in phase_gather_tools(dev).items():
         launches[k] += v
     for name in KERNELS:

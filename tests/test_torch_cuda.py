@@ -4,8 +4,9 @@ inputs — the stream kernel (B1) and the list kernel (B2) at 8-, 32-, 64-
 and 128-row tiles and in their cases, both on config4's depth-only shadow
 pass, on a scene where every covered pixel ties on z, on tiles whose walk
 is cut into three or more work items, and launched repeatedly —
-the gather kernels (P1-P3) bit for bit (P1 and P2 also on indices outside
-the row, on odd shapes and launched repeatedly on two tables in turn), and frames through Renderer on CUDA
+the gather kernels (P1-P3) bit for bit (also on indices outside the row, on
+odd shapes and launched repeatedly on two tables in turn), the stream kernel on config6's shadow pass, a frame
+through present against readback, and frames through Renderer on CUDA
 equal to the frames on the CPU (config4/4b: shadow edges may flip, so at
 most max(2, 0.1 %) pixels past 1 LSB, the golden rule). These
 tests need a CUDA device and skip without one. On a machine with a card
@@ -291,3 +292,82 @@ def test_lane_gather_shapes_and_repeated_launches(cuda, S, W, kind):
     got = gather.lane_gather(dev_idx, f32)
     assert got.dtype == torch.float32
     assert torch.equal(got.cpu().view(torch.int32), wants[0])
+
+
+@pytest.mark.parametrize("kind", ["coherent", "uniform", "outside", "negative"])
+@pytest.mark.parametrize("PP", [174_848, 100_003, 51_200, 37])
+def test_quad_gather1_index_families_and_repeated_launches(cuda, PP, kind):
+    """P3 at four table widths (with these many indices its slice design,
+    where the sweep tool builds it, cuts 4, 2, 1 and 1 slices; an odd width
+    ends a slice on single words), on four index families: the
+    fetch tool's stride of 37 with a jitter, uniform, one in eight outside
+    the row on either side, and all outside. Two tables in turn, one of them
+    not on a 16-byte boundary: a launch keeps nothing."""
+    rng = np.random.default_rng(PP)
+    N = (max(4 * PP, 1000) + 77,)
+    if kind == "coherent":
+        i = ((np.arange(N[0], dtype=np.int64) * 37) % max(PP // 2, 1)
+             + rng.integers(0, 64, N)) % PP
+    elif kind == "uniform":
+        i = rng.integers(0, PP, N)
+    elif kind == "outside":
+        i = rng.integers(-(PP // 16) - 2, PP + PP // 16 + 2, N)
+        i[:3] = (-1, PP, -(2**31))
+    else:
+        i = np.concatenate([rng.integers(-2**31, 0, N[0] // 2), rng.integers(PP, 2**31, N[0] - N[0] // 2)])
+    idx = torch.from_numpy(i.astype(np.int32))
+    tabs = [torch.from_numpy(rng.integers(0, 2**32, (2, PP), dtype=np.uint32).view(np.int32))
+            for _ in range(2)]
+    wants = [gather.quad_gather1_plain(idx, t) for t in tabs]
+    assert torch.equal(wants[0], gather.quad_gather1_slices_plain(idx, tabs[0]))
+    dev_idx = idx.to(cuda)
+    off = torch.cat([torch.zeros(1, dtype=torch.int32), tabs[1].reshape(-1)]).to(cuda)
+    dev_tabs = [tabs[0].to(cuda), off[1:].view(2, PP)]
+    assert dev_tabs[1].data_ptr() % 16 == 4
+    n0 = kernels.launches["quad_gather1"]
+    for k in (0, 1, 0, 0, 1):
+        got = gather.quad_gather1(dev_idx, dev_tabs[k])
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), wants[k])
+    assert kernels.launches["quad_gather1"] == n0 + 5
+    assert kernels.quad_gather1_slices(PP) == gather.quad_gather1_slices(PP)
+    # few indices for the table
+    few = dev_idx[: max(PP // 8, 8)].contiguous()
+    assert torch.equal(gather.quad_gather1(few, dev_tabs[0]).cpu(),
+                       gather.quad_gather1_plain(few.cpu(), tabs[0]))
+
+
+def test_present_equals_readback(cuda):
+    """present() starts the frame's copy into pinned host memory and
+    flush() hands it out: the bytes of step + readback, in arrays that own
+    their memory and survive later frames."""
+    p, cam, scene = _scene(cuda)
+    r = Renderer(scene, p.config, cuda)
+    want = r.readback(r.step(scene, cam))
+    assert r.present(r.step(scene, cam)) is None
+    other = r.step(scene, p.animate(1.1)[0])
+    got = r.present(other)
+    h_other = r.flush()
+    for _ in range(3):  # later frames reuse the device buffers
+        r.readback(r.step(scene, p.animate(2.0)[0]))
+    assert np.array_equal(got.color, want.color) and np.array_equal(got.depth, want.depth)
+    assert got.color.flags.owndata and got.depth.flags.owndata
+    assert set(got.stats) == set(want.stats)
+    for k in want.stats:
+        assert got.stats[k].dtype == want.stats[k].dtype and got.stats[k] == want.stats[k], k
+    assert not np.array_equal(h_other.color, want.color)
+    assert r.flush() is None
+
+
+def test_stream_kernel_on_config6_shadow_pass(cuda):
+    """The loaded courtyard's depth-only pass from the light at a 512^2 map
+    (32x128 tiles): the stream kernel against its plain version, nothing
+    dropped."""
+    p = presets.config6_asset()
+    cam, mm = p.animate(0.4)
+    scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), cuda)
+    cfg = dataclasses.replace(shadow_config(p.config), width=512, height=512)
+    lv, lp = (convert.tensor(m, cuda) for m in light_matrices_for_scene(scene))
+    inp = stream.prepare(geometry(scene, lv, lp, cfg), cfg)
+    _same(stream.vis_stream(inp, cfg), stream.vis_stream_plain(inp, cfg))
+    assert int(inp.dropped) == 0

@@ -1,12 +1,18 @@
-"""The port's whole frame on the CPU (config1, config2 and config3 at golden
-size): it matches the checked-in golden by the golden rule (no pixel more
+"""The port's whole frame on the CPU (config1, config2, config3, config5,
+config6 and config6cap at golden size): it matches the checked-in golden by the golden rule (no pixel more
 than 1 LSB off, coverage within 1e-6 of the manifest), and the reference
 Renderer on the same scene by the device-vs-oracle rule (coverage exact,
-depth within 1e-6, color within 1 LSB), with equal stats. Also the
-Renderer's buffers and present queue, the layout axes, the options ported
-since the first slice (Phong, shadows and blending on the small terrain,
-against the reference Renderer) and the options that still raise."""
+depth within 1e-6, color within 1 LSB), with equal stats; the shadow-mapped
+config6 and config6cap by the shadow-edge rules of tests/test_goldens.py
+and tests/test_torch_phong.py. Also the Renderer's buffers and present
+queue, the layout axes, the options ported since the first slice (Phong,
+shadows and blending on the small terrain, the z early-out flags, the
+identity record layout), the overflow count of the stream backend against
+the reference's, the presets' configs field by field, and the options that
+still raise."""
 
+import dataclasses
+import functools
 import json
 import os
 
@@ -32,12 +38,19 @@ PORT = {
     "config1": presets.config1_cube,
     "config2": presets.config2_icospheres,
     "config3": lambda: presets.config3_terrain(48, 48),
+    "config5": lambda: presets.config5_flythrough(64, 64),
+    "config6": presets.config6_asset,
+    "config6cap": presets.config6_capped,
 }
 REF = {
     "config1": ref_presets.config1_cube,
     "config2": ref_presets.config2_icospheres,
     "config3": lambda: ref_presets.config3_terrain(48, 48),
+    "config5": lambda: ref_presets.config5_flythrough(64, 64),
+    "config6": ref_presets.config6_asset,
+    "config6cap": ref_presets.config6_capped,
 }
+SHADOWED = ("config6", "config6cap")  # the shadow-edge rule of tests/test_goldens.py:51-56
 
 
 def _manifest(name="config3"):
@@ -60,7 +73,9 @@ def _check_golden(frame, name, m):
     golden = read_png(os.path.join(GOLDEN_DIR, f"{name}.png"))
     assert frame.color.shape == golden.shape and frame.color.dtype == np.uint8
     diff = np.abs(frame.color.astype(int) - golden.astype(int))
-    assert (diff.max(axis=-1) > 1).sum() == 0, f"max diff {diff.max()}"
+    npix = golden.shape[0] * golden.shape[1]
+    allowed = max(2, int(npix * 0.001)) if name in SHADOWED else 0
+    assert (diff.max(axis=-1) > 1).sum() <= allowed, f"max diff {diff.max()}"
     cov = float((frame.depth < 1.0).mean())
     assert abs(cov - m["coverage"]) < 1e-6
 
@@ -76,13 +91,19 @@ def test_flat_and_gouraud_frames_match_golden(name):
     _check_golden(_port_frame(m["t"], m, name), name, m)
 
 
-def _check_against_reference(name, t):
+def _ref_frame(name, t, **over):
     m = _manifest(name)
-    p = ref_presets.small_preset(REF[name](), m["width"], m["height"], **m["overrides"])
+    p = ref_presets.small_preset(REF[name](), m["width"], m["height"],
+                                 **{**m["overrides"], **over})
     cam, mm = p.animate(t, np)
     scene = p.scene.replace(model_matrices=mm)
     r = RefRenderer(scene, p.config)
-    ref = r.readback(r.step(scene, cam))
+    return r.readback(r.step(scene, cam), strict=False), scene, cam, p.config
+
+
+def _check_against_reference(name, t):
+    m = _manifest(name)
+    ref, _, _, _ = _ref_frame(name, t)
     frame = _port_frame(t, m, name)
     assert ((frame.depth == 1.0) == (ref.depth == 1.0)).all(), "coverage mismatch"
     np.testing.assert_allclose(frame.depth, ref.depth, rtol=0, atol=1e-6)
@@ -100,6 +121,98 @@ def test_port_frame_matches_reference_renderer(t):
 @pytest.mark.parametrize("name", ["config1", "config2"])
 def test_flat_and_gouraud_frames_match_reference_renderer(name):
     _check_against_reference(name, 1.1)
+
+
+@functools.lru_cache(maxsize=None)
+def _golden_port_frame(name):
+    m = _manifest(name)
+    return _port_frame(m["t"], m, name)
+
+
+@pytest.mark.parametrize("name", ["config5", "config6", "config6cap"])
+def test_deep_and_asset_frames_match_golden(name):
+    _check_golden(_golden_port_frame(name), name, _manifest(name))
+
+
+@pytest.mark.parametrize("name", ["config5", "config6", "config6cap"])
+def test_deep_and_asset_frames_match_reference_renderer(name):
+    """Coverage and stats exact; depth within 1e-6 (the device-vs-oracle
+    rule) at all but 0.1 % of the pixels and within 1e-5 at those
+    (torch.tan and numpy's differ by an ulp
+    at config5's 60 degree fov, so one element of the projection does, and
+    a vertex that lies on a rounding boundary snaps to the neighbouring
+    quarter pixel: 8 pixels of config5 differ by up to 2.7e-6); color
+    within 1 LSB; on the
+    shadow-mapped config6/6cap outside the pixels ``shadow_flip_risk``
+    marks (inside: at most 180 LSB), and at most max(2, npix / 1000) pixels
+    past 1 LSB in all (the goldens' 128^2 shadow map is coarse)."""
+    m = _manifest(name)
+    ref, rscene, rcam, rcfg = _ref_frame(name, m["t"])
+    frame = _golden_port_frame(name)
+    assert ((frame.depth == 1.0) == (ref.depth == 1.0)).all(), "coverage mismatch"
+    zdiff = np.abs(frame.depth - ref.depth)
+    assert zdiff.max() <= 1e-5 and (zdiff > 1e-6).sum() <= zdiff.size // 1000
+    assert set(frame.stats) == set(ref.stats)
+    for k in ref.stats:
+        assert int(frame.stats[k]) == int(ref.stats[k]), k
+    diff = np.abs(frame.color.astype(int) - ref.color.astype(int)).max(axis=-1)
+    if name in SHADOWED:
+        risk = shadow_flip_risk(rscene, rcam, rcfg)
+        assert (diff * ~risk).max() <= 1 and (diff * risk).max() <= 180
+        assert int((diff > 1).sum()) <= max(2, diff.size // 1000)
+    else:
+        assert diff.max() <= 1
+
+
+def test_texture_cap_touches_color_only():
+    """config6cap drops only the 512 map's top mip: geometry, depth and
+    stats are config6's. At the golden's 128x72 every pixel of that map is
+    minified past its level 1, where the capped chain holds the same
+    texels, so the colors agree to the u8 rounding too."""
+    a, b = _golden_port_frame("config6"), _golden_port_frame("config6cap")
+    assert (a.depth == b.depth).all()
+    assert np.abs(a.color.astype(int) - b.color.astype(int)).max() <= 1
+    for k in a.stats:
+        assert int(a.stats[k]) == int(b.stats[k]), k
+
+
+@pytest.mark.parametrize("name", sorted(presets.ALL_PRESETS))
+def test_preset_config_equals_reference_field_by_field(name):
+    """The capacities define the overflow semantics: every field equal."""
+    got = dataclasses.asdict(presets.ALL_PRESETS[name]().config)
+    want = dataclasses.asdict(ref_presets.ALL_PRESETS[name]().config)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k] == want[k] and type(got[k]) is type(want[k]), k
+
+
+def test_stream_overflow_count_equals_reference_stream_backend():
+    """Under overflow each backend counts bin_overflow its own way, and the
+    port's "auto" streams where the reference on the CPU takes its lists:
+    with the stream backend named on both sides (the reference's kernel in
+    interpret mode) the counts, the depth and the frame agree."""
+    over = {"backend": "pallas_stream", "stream_expand": 0.001}
+    m = _manifest("config3")
+    ref, _, _, _ = _ref_frame("config3", m["t"], pallas_interpret=True, **over)
+    p = presets.small_preset(PORT["config3"](), m["width"], m["height"],
+                             **{**m["overrides"], **over})
+    cam, mm = p.animate(m["t"])
+    scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), "cpu")
+    r = Renderer(scene, p.config, "cpu")
+    with pytest.raises(RuntimeError, match="bin_overflow"):
+        r.readback(r.step(scene, cam))
+    got = r.readback(r.step(scene, cam), strict=False)
+    assert int(got.stats["bin_overflow"]) == int(ref.stats["bin_overflow"]) > 0
+    for k in ref.stats:
+        assert int(got.stats[k]) == int(ref.stats[k]), k
+    assert ((got.depth == 1.0) == (ref.depth == 1.0)).all()
+    np.testing.assert_allclose(got.depth, ref.depth, rtol=0, atol=1e-6)
+    assert np.abs(got.color.astype(int) - ref.color.astype(int)).max() <= 1
+    # "auto" is the stream backend in the port: the same count
+    auto = presets.small_preset(p, m["width"], m["height"], backend="auto")
+    ra = Renderer(scene, auto.config, "cpu")
+    assert int(ra.readback(ra.step(scene, cam), strict=False).stats["bin_overflow"]) == int(
+        got.stats["bin_overflow"])
 
 
 def test_config2_backends_render_the_same_frame():
@@ -182,9 +295,14 @@ def test_layout_axes_render_the_same_frame(axis, value):
 
 # options of earlier unported-option cases that the port runs now: Phong on
 # the textured terrain (the texture through uv slot 6), with a shadow map,
-# and blending with no transparent material
+# blending with no transparent material, the z early-out flags (they cannot
+# change the frame) and the identity record layout (capacity >= T +
+# clip_budget * 7)
 PORTED_OPTIONS = {"blend": {"blend": True}, "mode": {"mode": 3},
-                  "shadow_map_size": {"mode": 3, "shadow_map_size": 64}}
+                  "shadow_map_size": {"mode": 3, "shadow_map_size": 64},
+                  "z_earlyout": {"z_earlyout": True},
+                  "z_gates": {"z_earlyout": True, "z_chunk_gate": True, "z_band_gate": True},
+                  "identity_layout": {"clip_expand": 8.0}}
 
 
 @pytest.mark.parametrize("name", sorted(PORTED_OPTIONS))
@@ -207,14 +325,42 @@ def test_formerly_unported_options_render_the_reference_frame(name):
     assert (diff * ~risk).max() <= 1 and (diff * risk).max() <= 180
 
 
+Z_FLAGS = [{"z_earlyout": True}, {"z_earlyout": True, "z_chunk_gate": True},
+           {"z_earlyout": True, "z_band_gate": True},
+           {"z_earlyout": True, "z_chunk_gate": True, "z_band_gate": True}]
+
+
+@pytest.mark.parametrize("backend", ["pallas_stream", "pallas_smem", "jnp"])
+def test_z_flags_render_the_same_frame(backend):
+    """The early-out and its gates on and off: one frame, one set of stats,
+    through each backend's plain version."""
+    p, cam, scene = _small(backend=backend)
+    base = Renderer(scene, p.config, "cpu")
+    want = base.readback(base.step(scene, cam))
+    for flags in Z_FLAGS:
+        r = Renderer(scene, dataclasses.replace(p.config, **flags), "cpu")
+        got = r.readback(r.step(scene, cam))
+        assert (got.color == want.color).all() and (got.depth == want.depth).all(), flags
+        assert all(int(got.stats[k]) == int(want.stats[k]) for k in want.stats), flags
+
+
+def test_z_chunk_gate_keeps_the_block_size_check():
+    """As in the reference: under z_chunk_gate the stream's block size is a
+    multiple of the 8 records one aggregate gates."""
+    p, cam, scene = _small(backend="pallas_stream", z_earlyout=True, z_chunk_gate=True,
+                           stream_block=100)
+    with pytest.raises(AssertionError, match="CHUNK_G"):
+        Renderer(scene, p.config, "cpu").step(scene, cam)
+
+
 @pytest.mark.parametrize("over", [
-    {"bin_zorder": True}, {"bin_pairs": 2}, {"z_earlyout": True}, {"num_shards": 2},
-    {"debug_checks": True},
-    # the list kernel's prep refuses the occlusion early-out too
-    {"backend": "pallas_smem", "z_earlyout": True},
-    # the identity record layout: capacity >= T + clip_budget * 7
-    {"clip_expand": 8.0},
-], ids=lambda d: next(iter(d)))
+    {"bin_zorder": True}, {"bin_pairs": 2}, {"num_shards": 2}, {"debug_checks": True},
+    # the list kernel's binning refuses the bin options too
+    {"backend": "pallas_smem", "bin_zorder": True},
+    {"backend": "pallas_smem", "bin_pairs": 2},
+    # config5 as its preset sets it: 4 screen bands
+    {"num_shards": 4, "z_earlyout": True},
+], ids=lambda d: "-".join(d))
 def test_unported_options_raise(over):
     p, cam, scene = _small(**over)
     with pytest.raises(NotImplementedError):

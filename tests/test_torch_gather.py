@@ -191,6 +191,37 @@ def test_table_rows_is_the_transpose(S, W):
     assert np.array_equal(rows.numpy(), tab.numpy().T)
 
 
+@pytest.mark.parametrize("kind", ["uniform", "coherent", "outside"])
+@pytest.mark.parametrize("S,width,slice_words", [(16, 1000, 256), (1, 1003, 252), (2, 77, 128),
+                                                 (3, 5, 4), (16, 2048, gather.P3_SLICE_WORDS)])
+def test_quad_gather1_slices_algorithm_is_the_definition(S, width, slice_words, kind):
+    """The one-channel gather's slice design: the row in slices, every element
+    written exactly once, by the slice that holds its index (slice 0 writes
+    the 0 of an index outside the row). Widths that end a slice on single
+    words and a table of one slice among them."""
+    rng = np.random.default_rng(300 + width)
+    tab = _table(rng, S, width)
+    idx = _indices(kind, rng, (5, 7, 33), width)
+    want = gather.quad_gather1_plain(idx, tab)
+    writes = torch.zeros(idx.shape, dtype=torch.int32)
+    _same_bits(gather.quad_gather1_slices_plain(idx, tab, slice_words, writes=writes), want)
+    assert (writes == 1).all()
+    K, sw = gather.quad_gather1_slices(width, slice_words)
+    assert sw % 4 == 0 and sw <= slice_words and (K - 1) * sw < width <= K * sw
+    i = idx.numpy().astype(np.int64)
+    ok = (i >= 0) & (i < width)
+    ref = np.where(ok, tab.numpy().view(np.uint32)[0][np.where(ok, i, 0)], 0).astype(np.uint32)
+    assert np.array_equal(want.numpy().view(np.uint32), ref)
+
+
+def test_quad_gather1_slices_of_the_tools_table():
+    """The fetch tool's row of 174,848 words: 4 slices of 43,712 words
+    (174,848 bytes each, inside a CTA's 227 KB of shared memory)."""
+    assert gather.quad_gather1_slices(microbench_gather.PP) == (4, 43_712)
+    assert gather.quad_gather1_slices(1) == (1, 4)
+    assert gather.quad_gather1_slices(gather.P3_SLICE_WORDS + 1) == (2, 25_604)
+
+
 @pytest.mark.parametrize("name", ["lane_gather", "quad_gather", "quad_gather1"])
 def test_launch_wrappers_refuse_what_the_kernels_do_not_take(name):
     fn = getattr(kernels, name)
@@ -242,7 +273,8 @@ def test_tools_need_a_card():
 def test_sweep_variants_name_macros_of_the_source():
     """Every macro a variant of the sweep sets is one csrc/gather.cu reads."""
     src = (kernels.CSRC / "gather.cu").read_text()
-    assert sweep_gather.VARIANTS[0] == sweep_gather.VARIANTS[-1] == "P1_DESIGN=0,P2_DESIGN=0"
+    assert (sweep_gather.VARIANTS[0] == sweep_gather.VARIANTS[-1]
+            == "P1_DESIGN=0,P2_DESIGN=0,P3_DESIGN=0")
     assert "" in sweep_gather.VARIANTS  # the source as it stands
     for spec in sweep_gather.VARIANTS:
         for flag in sweep_gather._flags(spec):

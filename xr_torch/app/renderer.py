@@ -7,13 +7,15 @@ matrices, the shadow map's depth-only pass from the light (Phong with
 shading, the blend pass (``blend``) and the u8 resolve — with shapes fixed
 by the config and no host read-back, so frames queue on the device.
 ``readback_frame`` is the Present() replacement: a device-to-host copy that
-raises on any overflow counter.
+raises on any overflow counter. ``PresentMixin.present`` starts that copy
+when the frame is queued (CUDA: pinned host buffers, non-blocking, behind an
+event), so the host's use of frame N-1 overlaps frame N.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,8 +32,7 @@ from xr_torch.shading.deferred import shade_deferred
 
 def _check_config(config: RenderConfig) -> None:
     """Raise on frame-level options the port does not implement yet (the
-    stages raise on their own: modes, raster paths, backends, z_earlyout,
-    bin options)."""
+    binning raises on its own options, bin_zorder and bin_pairs=2)."""
     unported = {
         "debug_checks": config.debug_checks,
         "num_shards": config.num_shards != 1,
@@ -153,9 +154,40 @@ def _host(t: torch.Tensor):
     return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
 
-def readback_frame(frame: Frame, strict: bool = True) -> Frame:
+class HostCopy(NamedTuple):
+    """A frame's device-to-host copy in flight."""
+
+    frame: Frame  # pinned host tensors, complete once `done` is
+    done: torch.cuda.Event
+
+
+def start_host_copy(frame: Frame) -> Optional[HostCopy]:
+    """Queue a CUDA frame's copy into pinned host memory behind the work
+    that renders it; None for a frame on the CPU, which needs no copy."""
+    dev = frame.color.device
+    if dev.type != "cuda":
+        return None
+
+    def pin(t):
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+
+    with torch.cuda.device(dev):
+        host = Frame(color=pin(frame.color), depth=pin(frame.depth),
+                     stats={k: pin(v) for k, v in frame.stats.items()})
+        done = torch.cuda.Event()
+        done.record()
+    return HostCopy(host, done)
+
+
+def readback_frame(frame: Frame, strict: bool = True,
+                   copy: Optional[HostCopy] = None) -> Frame:
     """Device-to-host copy. strict: raise if a fixed-capacity stage
-    overflowed and dropped triangles."""
+    overflowed and dropped triangles. copy: the frame's copy started
+    earlier (start_host_copy); it is waited for in place of a new,
+    synchronous one."""
+    if copy is not None:
+        copy.done.synchronize()
+        frame = copy.frame
     out = Frame(
         color=_host(frame.color),
         depth=_host(frame.depth),
@@ -173,30 +205,39 @@ def readback_frame(frame: Frame, strict: bool = True) -> Frame:
 
 
 class PresentMixin:
-    """One frame in flight: ``present(frame)`` queues frame N and returns
-    frame N-1's host copy (None on the first call); ``flush()`` drains."""
+    """One frame in flight: ``present(frame)`` queues frame N, starts its
+    host copy and returns frame N-1's completed host copy (None on the
+    first call); ``flush()`` drains."""
 
     _inflight: Optional[Frame] = None
+    _copy: Optional[HostCopy] = None
 
     def _retire(self, frame: Frame) -> None:
         """Called once a frame's host copy is complete."""
 
     def present(self, frame: Frame, strict: bool = True) -> Optional[Frame]:
-        prev, self._inflight = self._inflight, frame
-        if prev is None:
-            return None
-        return self.readback(prev, strict)
+        return self._swap(frame, start_host_copy(frame), strict)
 
     def flush(self, strict: bool = True) -> Optional[Frame]:
-        prev, self._inflight = self._inflight, None
+        return self._swap(None, None, strict)
+
+    def _swap(self, frame, copy, strict):
+        """Put (frame, copy) in flight; the host copy of the frame that was."""
+        prev, prev_copy = self._inflight, self._copy
+        self._inflight, self._copy = frame, copy
         if prev is None:
             return None
-        return self.readback(prev, strict)
+        return self._readback(prev, strict, prev_copy)
 
     def readback(self, frame: Frame, strict: bool = True) -> Frame:
-        """Synchronous device-to-host transfer of one frame."""
+        """Device-to-host transfer of one frame: synchronous, unless the
+        frame is the one in flight, whose copy `present` started."""
+        return self._readback(frame, strict,
+                              self._copy if frame is self._inflight else None)
+
+    def _readback(self, frame: Frame, strict: bool, copy: Optional[HostCopy]) -> Frame:
         try:
-            return readback_frame(frame, strict)
+            return readback_frame(frame, strict, copy)
         finally:
             self._retire(frame)
 
@@ -218,6 +259,7 @@ class Renderer(PresentMixin):
         self.device = torch.device(device)
         self.capacity = clip_capacity(scene.mesh.num_triangles, config)
         self._inflight = None
+        self._copy = None
         self._pool = []
         self._light = light_matrices_for_scene(scene) if has_shadow_pass(config) else None
 

@@ -20,6 +20,7 @@ from xr_torch.core.types import (
     Lights,
     Material,
     Mesh,
+    RaggedPyramid,
     RenderConfig,
     Scene,
     TexturePyramid,
@@ -58,15 +59,32 @@ def mesh_to_torch(m, device) -> Mesh:
     )
 
 
+def textures_to_torch(tex, device):
+    """A TexturePyramid or a RaggedPyramid (told apart by
+    ``base_size_per_tex``) with tensor leaves on device, or None."""
+    if tex is None:
+        return None
+    if hasattr(tex, "base_size_per_tex"):
+        return RaggedPyramid(
+            data=tensor(tex.data, device, F32),
+            quads=tensor(tex.quads, device, I32),
+            level_offset=tensor(tex.level_offset, device, I32),
+            level_size=tensor(tex.level_size, device, I32),
+            base_size_per_tex=tensor(tex.base_size_per_tex, device, I32),
+            num_levels=int(tex.num_levels),
+        )
+    return TexturePyramid(
+        data=tensor(tex.data, device, F32),
+        quads=tensor(tex.quads, device, I32),
+        base_size=int(tex.base_size),
+        num_levels=int(tex.num_levels),
+    )
+
+
 def scene_to_torch(scene, device) -> Scene:
     """A Scene (the port's or the reference's) with tensor leaves on device."""
     mat = scene.materials
     lt = scene.lights
-    tex = scene.textures
-    if tex is not None and hasattr(tex, "base_size_per_tex"):
-        raise NotImplementedError("ragged texture pyramids are not ported yet")
-    if getattr(mat, "tex_addr", None) is not None:
-        raise NotImplementedError("texture address modes are not ported yet")
     return Scene(
         mesh=mesh_to_torch(scene.mesh, device),
         materials=Material(
@@ -77,14 +95,9 @@ def scene_to_torch(scene, device) -> Scene:
             shininess=tensor(mat.shininess, device, F32),
             tex_id=tensor(mat.tex_id, device, I32),
             alpha=_opt(getattr(mat, "alpha", None), device, F32),
-            tex_addr=None,
+            tex_addr=_opt(getattr(mat, "tex_addr", None), device, I32),
         ),
-        textures=None if tex is None else TexturePyramid(
-            data=tensor(tex.data, device, F32),
-            quads=tensor(tex.quads, device, I32),
-            base_size=int(tex.base_size),
-            num_levels=int(tex.num_levels),
-        ),
+        textures=textures_to_torch(scene.textures, device),
         lights=Lights(
             dir_dirs=tensor(lt.dir_dirs, device, F32),
             dir_colors=tensor(lt.dir_colors, device, F32),

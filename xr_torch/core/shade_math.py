@@ -1,9 +1,9 @@
 """Shading formulas of the port (port of ``xr/core/shade_math.py``):
 Lambert, vertex and flat-face lighting, Blinn-Phong, the shadow-map test,
 the analytic mip LOD, trilinear sampling from the packed
-quad pyramid (wide fetch, table mip math, repeat addressing) and the u8
-resolve. Float32 throughout; the reductions are written out so their order
-is the reference's.
+quad pyramid (uniform or ragged; wide fetch, table mip math, repeat and
+clamp addressing) and the u8 resolve. Float32 throughout; the reductions
+are written out so their order is the reference's.
 """
 
 from __future__ import annotations
@@ -122,8 +122,10 @@ def shadow_test(shadow_depth, world_pos, light_viewproj, bias: float):
 
 def lod_from_derivs(dudx, dvdx, dudy, dvdy, base_size):
     """Mip LOD = 0.5 * log2(max(|d(uv*S)/dx|^2, |d(uv*S)/dy|^2)), with the
-    derivatives clamped before squaring so background pixels stay finite."""
-    s = float(base_size)
+    derivatives clamped before squaring so background pixels stay finite.
+    base_size is a scalar (uniform pyramid) or a per-pixel f32 tensor
+    (RaggedPyramid)."""
+    s = base_size if isinstance(base_size, torch.Tensor) else float(base_size)
     lim = 1e18
 
     def sq(d):
@@ -136,10 +138,17 @@ def lod_from_derivs(dudx, dvdx, dudy, dvdy, base_size):
     return 0.5 * (torch.log(rho2) * (1.0 / math.log(2.0)))
 
 
-def sample_trilinear(pyramid, tex_id, u, v, lod):
-    """Trilinear sample of a TexturePyramid: ONE row gather per pixel from
-    the (Ntex*P, 13) quad table (own 2x2 quad + parent 3x3), repeat-wrapped
-    uv, per-pixel level tables. Returns (..., 3) f32."""
+def sample_trilinear(pyramid, tex_id, u, v, lod, addr=None, mip_math: str = "table"):
+    """Trilinear sample of a TexturePyramid or a RaggedPyramid: ONE row
+    gather per pixel from the flat (rows, 13) quad table (own 2x2 quad +
+    parent 3x3), per-pixel level tables. Returns (..., 3) f32.
+
+    addr: optional (...,) i32 address mode per pixel (Material.tex_addr):
+    0 repeats, 1 clamps the sample position to the coarser level's
+    half-texel interior, so no bilinear footprint crosses an edge and the
+    wrap-packed quad layout stays valid. None is all-repeat.
+    mip_math: only checked; "closed" needs one shared power-of-two chain
+    and raises ValueError on a RaggedPyramid, as the reference does."""
     L = pyramid.num_levels
     dev = u.device
     lf = torch.clamp(lod, 0.0, float(L - 1))
@@ -148,22 +157,47 @@ def sample_trilinear(pyramid, tex_id, u, v, lod):
     l0 = l0f.to(torch.int32)
     l1 = torch.clamp_max(l0 + 1, L - 1)
 
-    base = pyramid.base_size
-    sizes = torch.tensor([max(base >> k, 1) for k in range(L)], dtype=torch.int32, device=dev)
-    offsets = torch.tensor(
-        [pyramid.level_offset(k) for k in range(L)], dtype=torch.int32, device=dev
-    )
-    P = pyramid.quads.shape[1]
+    # index arithmetic stays int32 (the reference's width); only the gather
+    # itself widens
+    if hasattr(pyramid, "base_size_per_tex"):  # RaggedPyramid
+        if mip_math == "closed":
+            raise ValueError(
+                "mip_math='closed' needs a uniform TexturePyramid (one "
+                "shared power-of-two chain); RaggedPyramid sizes/offsets "
+                "are per-texture data, not closed-form"
+            )
+        ls_flat = pyramid.level_size.reshape(-1)
+        lo_flat = pyramid.level_offset.reshape(-1)
 
-    def size_at(lk):
-        return sizes[lk.long()]
+        def size_at(lk):
+            return ls_flat[(tex_id * L + lk).long()]
 
-    def qbase(lk):
-        return tex_id * P + offsets[lk.long()]
+        def qbase(lk):
+            return lo_flat[(tex_id * L + lk).long()]
+    else:
+        base = pyramid.base_size
+        sizes = torch.tensor([max(base >> k, 1) for k in range(L)], dtype=torch.int32, device=dev)
+        offsets = torch.tensor(
+            [pyramid.level_offset(k) for k in range(L)], dtype=torch.int32, device=dev
+        )
+        P = pyramid.quads.shape[1]
+
+        def size_at(lk):
+            return sizes[lk.long()]
+
+        def qbase(lk):
+            return tex_id * P + offsets[lk.long()]
 
     inv255 = 1.0 / 255.0
-    u = u - torch.floor(u)
-    v = v - torch.floor(v)
+    uw = u - torch.floor(u)
+    vw = v - torch.floor(v)
+    if addr is None:
+        u, v = uw, vw
+    else:
+        half = 0.5 / size_at(l1).to(F32)
+        clamped = addr == 1
+        u = torch.where(clamped, torch.clamp(u, half, 1.0 - half), uw)
+        v = torch.where(clamped, torch.clamp(v, half, 1.0 - half), vw)
 
     def unpack_ch(q, shift):
         c = (q >> shift) & 0xFF if shift else q & 0xFF

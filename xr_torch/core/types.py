@@ -96,15 +96,16 @@ class RenderConfig(_Replace):
     corner_fetch: str = "pertri"
     mip_math: str = "table"
     record_pack: str = "value"
-    # occlusion early-out and its refinements (not ported yet)
+    # occlusion early-out and its refinements: accepted, they cannot change
+    # the output and the port runs its one fold (bin_zorder: not ported yet)
     z_earlyout: bool = False
     bin_zorder: bool = False
     z_chunk_gate: bool = False
     z_band_gate: bool = False
-    # shadow mapping (MODE_PHONG only; not ported yet)
+    # shadow mapping (MODE_PHONG only)
     shadow_map_size: int = 0
     shadow_bias: float = 2e-3
-    # alpha blending (not ported yet)
+    # alpha blending
     blend: bool = False
     blend_capacity: int = 128
     blend_chunk: int = 8
@@ -293,12 +294,39 @@ class TexturePyramid(_Replace):
 
 
 @dataclasses.dataclass(frozen=True)
+class RaggedPyramid(_Replace):
+    """Mixed-size texture pyramid: every texture keeps its native square
+    power-of-two size, and all mip chains lie in one gatherable buffer.
+
+    data:   (Ptotal, 3) f32 reference texels.
+    quads:  (Ptotal, 13) int32 sampling layout (see TexturePyramid.quads).
+    level_offset: (Ntex, Lmax) i32 start row of (texture, level); levels
+            past a texture's native chain repeat its last (1x1) level.
+    level_size:   (Ntex, Lmax) i32 texel width of (texture, level), min 1.
+    base_size_per_tex: (Ntex,) i32 native size (the per-pixel LOD scale).
+    num_levels: Lmax, the longest native chain (static).
+    """
+
+    data: Any
+    quads: Any
+    level_offset: Any
+    level_size: Any
+    base_size_per_tex: Any
+    num_levels: int = 0
+
+    @property
+    def num_textures(self) -> int:
+        return self.level_offset.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene(_Replace):
-    """mesh, materials, textures (or None), lights, model_matrices (M,4,4)."""
+    """mesh, materials, textures (a TexturePyramid, a RaggedPyramid or
+    None), lights, model_matrices (M,4,4)."""
 
     mesh: Mesh
     materials: Material
-    textures: Optional[TexturePyramid]
+    textures: Optional[Any]
     lights: Lights
     model_matrices: Any
 

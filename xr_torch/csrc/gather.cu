@@ -40,10 +40,34 @@
 // transpose (XR_PDL): it starts while the transpose drains, reads its
 // indices, and waits for the transpose before it touches the scratch.
 //
+// P3 (one word an index) has no layout that asks the L2 for fewer sectors,
+//   and ships as the one-thread-an-element kernel that reads the row in
+//   place (XR_P3_DESIGN 0): 0.0205 ms cold for 2,073,600 indices on an H100
+//   at 700 W, a sector an index at the pace the L2 serves an SM. Two designs
+//   that take the table out of the L2's way were built and measured, and
+//   neither clears 0.015 ms, so they stay behind macros for the sweep tool:
+//   XR_P3_DESIGN 1, the in-place kernel with cache hints (the table kept in
+//   the L1 with evict_last under the largest L1 carve-out, indices and
+//   output streamed past it): 0.0207 ms, an SM sees too few indices to reuse
+//   a sector. XR_P3_DESIGN 2, slices: row 0 is cut into K slices of at most
+//   XR_P3_SLICE_KB, a persistent CTA an SM keeps slice blockIdx.x % K in
+//   shared memory (loaded once, 16 bytes a cp.async) and walks its share of
+//   the index stream with coalesced streaming loads; a lane whose index
+//   falls into the slice reads shared memory and stores its word. The slices
+//   partition the row and slice 0's CTAs write the 0 of every index outside
+//   the row, so each output element is written by exactly one CTA: no clear
+//   pass, no atomics, nothing kept between launches. Its price is what
+//   holds it at 0.0195-0.0211 ms: the indices are read K times, every CTA
+//   loads a slice, and a line of output is stored in K parts; a launch with
+//   under XR_P3_MIN_RATIO indices a table word reads the row in place.
+//   XR_P3_INTERLEAVE deals the row's 128-byte lines round the slices, so
+//   that crowded indices spread over all CTAs: 0.0298 ms.
+//
 // Kept for the sweep tool (python -m xr_torch.tools.sweep_gather), which
 // rebuilds this file with other macros: design 0 of P1 and P2, the
-// one-thread-an-element kernels that read the table in place, the yardstick
-// (P3 is that kernel still); XR_P1_DESIGN 1, a thread a column and
+// one-thread-an-element kernels that read the table in place, the
+// yardstick; XR_P3_DESIGN, XR_P3_THREADS, XR_P3_UNROLL, XR_P3_SLICE_KB,
+// XR_P3_INTERLEAVE and XR_P3_MIN_RATIO; XR_P1_DESIGN 1, a thread a column and
 // XR_P1_ROWS rows read in place, with XR_P1_PREFETCH streaming the table
 // into the L2 first (1: a hint inside the kernel, 2: a kernel ahead), which
 // did not beat design 0; XR_T_ANY, the transpose for any S on every shape;
@@ -85,6 +109,24 @@
 #endif
 #ifndef XR_PDL
 #define XR_PDL 1
+#endif
+#ifndef XR_P3_DESIGN
+#define XR_P3_DESIGN 0
+#endif
+#ifndef XR_P3_THREADS
+#define XR_P3_THREADS 1024
+#endif
+#ifndef XR_P3_UNROLL
+#define XR_P3_UNROLL 4
+#endif
+#ifndef XR_P3_SLICE_KB
+#define XR_P3_SLICE_KB 200
+#endif
+#ifndef XR_P3_INTERLEAVE
+#define XR_P3_INTERLEAVE 0
+#endif
+#ifndef XR_P3_MIN_RATIO
+#define XR_P3_MIN_RATIO 4
 #endif
 
 namespace {
@@ -147,6 +189,103 @@ __global__ void __launch_bounds__(kThreads) quad_gather1_kernel(
   if (n >= N) return;
   const int i = idx[n];
   out[n] = (unsigned)i < (unsigned)PP ? __ldg(tab + i) : 0u;
+}
+
+// ---- P3 in place with cache hints (XR_P3_DESIGN 1) ----
+
+__device__ __forceinline__ uint32_t load_keep_l1(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.L1::evict_last.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads) quad_gather1_hints_kernel(
+    const uint32_t* __restrict__ tab, const int* __restrict__ idx,
+    uint32_t* __restrict__ out, int64_t N, int PP) {
+  const int64_t n = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (n >= N) return;
+  const int i = __ldcs(idx + n);
+  __stcs(out + n, (unsigned)i < (unsigned)PP ? load_keep_l1(tab + i) : 0u);
+}
+
+// ---- P3 from slices of the row in shared memory (XR_P3_DESIGN 2) ----
+
+constexpr int kP3Threads = XR_P3_THREADS;
+constexpr int kP3Unroll = XR_P3_UNROLL;
+constexpr int kP3SliceWords = XR_P3_SLICE_KB * 256;  // the most words of a slice
+static_assert(kP3Threads % 32 == 0 && kP3Threads <= 1024, "whole warps, one CTA");
+static_assert(kP3SliceWords * 4 <= 227 * 1024 && kP3SliceWords % 32 == 0, "a CTA's shared memory");
+
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// CTA b keeps slice b % K and is the (b / K)-th of the gridDim.x / K CTAs
+// that share the index stream for that slice. Slice k holds words
+// [k * sw, (k + 1) * sw) of the row (`sw` a multiple of 4), or, with
+// XR_P3_INTERLEAVE, every K-th 128-byte line of it, so that indices that
+// crowd one part of the row still spread over all slices. `aligned`: the row
+// starts on 16 bytes.
+__global__ void __launch_bounds__(kP3Threads, 1) quad_gather1_slices_kernel(
+    const uint32_t* __restrict__ tab, const int* __restrict__ idx,
+    uint32_t* __restrict__ out, int64_t N, int PP, int sw, int K, int aligned) {
+  extern __shared__ __align__(16) uint32_t slice[];
+  const int k = blockIdx.x % K, g = blockIdx.x / K, G = gridDim.x / K;
+  const int t = threadIdx.x;
+#if XR_P3_INTERLEAVE
+  // local line l is line l * K + k of the row; sw / 32 lines a slice
+  for (int q = t; q < sw / 4; q += kP3Threads) {
+    const int w = ((q >> 3) * K + k) * 32 + (q & 7) * 4;  // first word of the piece
+    if (aligned && w + 4 <= PP) {
+      cp_async_16(slice + 4 * q, tab + w);
+    } else {
+      for (int e = 0; e < 4; ++e)
+        if (w + e < PP) slice[4 * q + e] = tab[w + e];
+    }
+  }
+#else
+  const int lo = k * sw, words = min(sw, PP - lo);
+  const uint32_t* src = tab + lo;
+  const int whole = aligned ? words >> 2 : 0;  // 16-byte pieces, then single words
+  for (int q = t; q < whole; q += kP3Threads) cp_async_16(slice + 4 * q, src + 4 * q);
+  for (int w = 4 * whole + t; w < words; w += kP3Threads) slice[w] = src[w];
+#endif
+  bool loaded = false;
+  const int64_t step = (int64_t)kP3Threads * kP3Unroll;
+  for (int64_t base = g * step; base < N; base += G * step) {
+    int i[kP3Unroll];
+#pragma unroll
+    for (int u = 0; u < kP3Unroll; ++u) {
+      const int64_t n = base + u * kP3Threads + t;
+      i[u] = n < N ? __ldcs(idx + n) : 0;
+    }
+    if (!loaded) {  // the first indices are on their way while the slice lands
+      cp_async_wait_all();
+      __syncthreads();
+      loaded = true;
+    }
+#pragma unroll
+    for (int u = 0; u < kP3Unroll; ++u) {
+      const int64_t n = base + u * kP3Threads + t;
+      if (n >= N) continue;
+      if ((unsigned)i[u] >= (unsigned)PP) {
+        if (k == 0) __stcs(out + n, 0u);
+        continue;
+      }
+#if XR_P3_INTERLEAVE
+      const int line = i[u] >> 5, l = line / K;
+      if (line - l * K == k) __stcs(out + n, slice[l * 32 + (i[u] & 31)]);
+#else
+      const unsigned r = (unsigned)(i[u] - lo);
+      if (r < (unsigned)words) __stcs(out + n, slice[r]);
+#endif
+    }
+  }
+  cp_async_wait_all();
 }
 
 // ---- the table row-major: (S, W) -> (W, S) ----
@@ -442,10 +581,46 @@ extern "C" int xr_quad_gather(const void* tab, const int* idx, void* out, void* 
   return (int)cudaGetLastError();
 }
 
+// The slices of a row of PP words: K of them, each `sw` words (a multiple
+// of 4, at most kP3SliceWords), the last one shorter; interleaved, whole
+// 128-byte lines.
+extern "C" int xr_quad_gather1_slices(int PP, int* sw) {
+  const int K = (PP + kP3SliceWords - 1) / kP3SliceWords;
+#if XR_P3_INTERLEAVE
+  *sw = ((PP + 31) / 32 + K - 1) / K * 32;
+  return K;
+#else
+  *sw = ((PP + K - 1) / K + 3) / 4 * 4;
+  return (PP + *sw - 1) / *sw;
+#endif
+}
+
 extern "C" int xr_quad_gather1(const void* tab, const int* idx, void* out,
                                int64_t N, int PP, void* stream) {
   if (N <= 0 || PP <= 0) return (int)cudaErrorInvalidValue;
-  quad_gather1_kernel<<<blocks(N), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)tab, idx, (uint32_t*)out, N, PP);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* t = (const uint32_t*)tab;
+  uint32_t* o = (uint32_t*)out;
+#if XR_P3_DESIGN == 2
+  if (N >= (int64_t)XR_P3_MIN_RATIO * PP) {
+    int dev = 0, sms = 0, sw = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(quad_gather1_slices_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kP3SliceWords * 4);
+    const int K = xr_quad_gather1_slices(PP, &sw);
+    const int G = sms / K > 0 ? sms / K : 1;  // CTAs that share the stream for a slice
+    quad_gather1_slices_kernel<<<K * G, kP3Threads, sw * 4, st>>>(
+        t, idx, o, N, PP, sw, K, ((uintptr_t)tab & 15) == 0);
+    return (int)cudaGetLastError();
+  }
+#endif
+#if XR_P3_DESIGN == 1
+  cudaFuncSetAttribute(quad_gather1_hints_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       0);
+  quad_gather1_hints_kernel<<<blocks(N), kThreads, 0, st>>>(t, idx, o, N, PP);
+#else
+  quad_gather1_kernel<<<blocks(N), kThreads, 0, st>>>(t, idx, o, N, PP);
+#endif
   return (int)cudaGetLastError();
 }

@@ -120,6 +120,8 @@ def library() -> ctypes.CDLL:
             lib.xr_lane_gather.argtypes = [p, p, p, p, i, i, p]
             lib.xr_quad_gather.argtypes = [p, p, p, p, i64, i, i, p]
             lib.xr_quad_gather1.argtypes = [p, p, p, i64, i, p]
+            lib.xr_quad_gather1_slices.argtypes = [i, ctypes.POINTER(i)]
+            lib.xr_quad_gather1_slices.restype = i
             lib.xr_lane_gather_scratch.argtypes = lib.xr_quad_gather_scratch.argtypes = [i, i]
             for fn in (lib.xr_lane_gather, lib.xr_quad_gather, lib.xr_quad_gather1,
                        lib.xr_lane_gather_scratch, lib.xr_quad_gather_scratch):
@@ -305,10 +307,19 @@ def quad_gather(idx, tab):
     return out
 
 
+def quad_gather1_slices(width: int):
+    """(K, slice words) of the cut of a row of `width` words that the
+    one-channel gather's slice design makes (csrc/gather.cu, XR_P3_DESIGN 2)."""
+    sw = ctypes.c_int(0)
+    return library().xr_quad_gather1_slices(width, ctypes.byref(sw)), sw.value
+
+
 def quad_gather1(idx, tab):
     """Launch the one-channel quad gather (csrc/gather.cu) on the current
     stream: out[...] = tab[0, idx[...]] — 0 where the index is outside
-    [0, PP).
+    [0, PP). The row is read in place, one thread an element; the source
+    keeps two other designs for the sweep tool (tools.gather.
+    quad_gather1_slices_plain states the one that works from slices).
 
     idx (...) i32, any shape; tab (S, PP) i32 (u32 bits), on one CUDA
     device. Returns idx's shape, i32 (u32 bits)."""

@@ -283,19 +283,15 @@ def geometry(
     stats_out: Optional[dict] = None,
 ) -> TriBuf:
     """Vertex transform -> classify -> clip (crossing triangles only) ->
-    project -> snap -> cull -> compact into capacity C. stats_out receives
-    crossing_total, live_records and fan_records."""
+    project -> snap -> cull -> compact into capacity C (or, where C holds
+    every triangle and every fan, the identity record layout). stats_out
+    receives crossing_total, live_records and fan_records."""
     mesh = scene.mesh
     T = mesh.num_triangles
     A = config.attr_width
     C = capacity if capacity is not None else clip_capacity(T, config)
     B = clip_budget(T, config)
     F = MAX_FAN
-    if identity_layout(T, config, C):
-        raise NotImplementedError(
-            "the identity record layout (capacity >= T + clip_budget*7) is not "
-            "ported yet"
-        )
     dev = mesh.positions.device
 
     clip, vattrs, face_rgb = _vertex_stage(scene, view, proj, config)
@@ -330,6 +326,45 @@ def geometry(
     xsB, ysB, zB, iwB, awB, validB = _project_snap(fan(poly_pos), fan(poly_attr), config)
     validB = (validB & fan_valid).reshape(B * F)
 
+    mat = mesh.material_id
+    rgbB = face_rgb[sel_l][:, None, :].expand(B, F, 3)
+    matB = mat[sel_l][:, None].expand(B, F)
+    src_idA = torch.arange(T, dtype=I32, device=dev)
+    src_idB = sel[:, None].expand(B, F)
+
+    # ---- identity record layout (capacity covers every triangle) ---------
+    # Where C >= T + B*F nothing is compacted: a record's id is its input
+    # triangle's, fans are appended at T + fan slot, invalid slots stay
+    # masked and the padding is zeros. Ids stay ascending in input order, so
+    # (z, id) depth ties resolve as in the compacted layout.
+    if identity_layout(T, config, C):
+        pad = C - T - B * F
+
+        def cat(a_field, b_field):
+            b2 = b_field.reshape((B * F,) + a_field.shape[1:])
+            return torch.cat([a_field, b2, a_field.new_zeros((pad,) + a_field.shape[1:])])
+
+        totalA = validA.sum(dtype=I32)
+        totalB = validB.sum(dtype=I32)
+        if stats_out is not None:
+            stats_out["crossing_total"] = crossing_total
+            stats_out["live_records"] = totalA + totalB
+            stats_out["fan_records"] = totalB
+        return TriBuf(
+            xs=cat(xsA, xsB),
+            ys=cat(ysA, ysB),
+            z=cat(zA, zB),
+            inv_w=cat(iwA, iwB),
+            attr_w=cat(awA, awB),
+            face_rgb=cat(face_rgb, rgbB),
+            mat_id=cat(mat, matB),
+            src_id=cat(src_idA, src_idB),
+            valid=cat(validA, validB),
+            count=(totalA + totalB).to(I32),
+            overflow=torch.clamp_min(crossing_total - B, 0).to(I32),
+            num_src=T,
+        )
+
     # ---- order-preserving compaction into capacity C ---------------------
     idxA, countA, totalA = _sort_compact_ids(validA, C)
     idxB, countB, totalB = _sort_compact_ids(validB, C)
@@ -343,7 +378,6 @@ def geometry(
         fm = from_a.reshape((C,) + (1,) * (a_field.ndim - 1))
         return torch.where(fm, a_field[idxA], b_field[srcB])
 
-    mat = mesh.material_id
     out_count = torch.clamp_max(countA + countB, C)
     overflow = torch.clamp_min(totalA + totalB - C, 0) + torch.clamp_min(
         crossing_total - B, 0
@@ -359,11 +393,9 @@ def geometry(
         z=merge(zA, zB),
         inv_w=merge(iwA, iwB),
         attr_w=merge(awA, awB),
-        face_rgb=merge(face_rgb, face_rgb[sel_l][:, None, :].expand(B, F, 3)),
-        mat_id=merge(mat, mat[sel_l][:, None].expand(B, F)),
-        src_id=merge(
-            torch.arange(T, dtype=I32, device=dev), sel[:, None].expand(B, F)
-        ),
+        face_rgb=merge(face_rgb, rgbB),
+        mat_id=merge(mat, matB),
+        src_id=merge(src_idA, src_idB),
         valid=slot < out_count,
         count=out_count.to(I32),
         overflow=overflow.to(I32),

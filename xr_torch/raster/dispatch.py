@@ -13,7 +13,14 @@ device alone, inside ``stream.vis_stream`` and ``smem.vis_lists``.
 The reference's SMEM budget rule is kept: ``pallas_smem`` with record
 windows past 900,000 bytes streams instead, so the backend that runs — and
 with it ``bin_overflow``, which each backend counts its own way — is the
-reference's for every config.
+reference's for every config but one: ``backend="auto"`` always streams
+here, the reference's choice on a TPU, while the reference off the TPU (its
+CPU tests) takes the ``jnp`` lists for ``auto``. Frames are equal either
+way; under overflow the counts are not (lists drop entries past
+``bin_capacity``, the stream drops whole blocks past its budget). So a
+comparison of ``bin_overflow`` with the reference on the CPU names the
+backend on both sides (``pallas_stream`` with ``pallas_interpret=True``
+there).
 """
 
 from __future__ import annotations

@@ -11,6 +11,9 @@ lists the work items of the kernel: each tile's walk cut into chunks of
 ``records.ITEM_RECORDS`` (``item_tile``, ``item_start``), computed on the
 device without a host read.
 
+``z_earlyout`` and its gates are accepted and run the one fold: they never
+change (tid, z).
+
 The wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel, and raises if that fails.
 """
@@ -50,8 +53,6 @@ class ListsInputs(NamedTuple):
 
 def prepare_lists(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> ListsInputs:
     """Bin and pack records (band-translated by y_offset rows)."""
-    if config.z_earlyout:
-        raise NotImplementedError("z_earlyout is not ported yet")
     b = bin_triangles(tri, config, y_offset=y_offset)
     ntiles, cap = b.lists.shape
     large_count = b.large_count.reshape(1)

@@ -13,6 +13,12 @@ lists the work items of the kernel: each tile's walk cut into chunks of
 ``records.ITEM_RECORDS`` (``item_tile``, ``item_start``), computed on the
 device without a host read.
 
+``z_earlyout``, ``z_chunk_gate`` and ``z_band_gate`` are accepted and run
+the one fold: the reference's gates skip records whose deflated ``z_min``
+cannot win, so they never change (tid, z). The fold reads a record only
+through a live id, never an empty slot's fields (the port's empty-slot
+sentinel is the id itself).
+
 The wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel, and raises if that fails.
 """
@@ -37,6 +43,8 @@ from xr_torch.raster.records import (
 )
 
 I32 = torch.int32
+
+CHUNK_G = 8  # records under one aggregate z_min in the reference's chunk gate
 
 
 def stream_blocks(config: RenderConfig, num_records: int, num_src: int = 0) -> int:
@@ -70,8 +78,8 @@ class StreamInputs(NamedTuple):
 
 def prepare(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> StreamInputs:
     """Bin, pack records and apply the reference's block budget."""
-    if config.z_earlyout:
-        raise NotImplementedError("z_earlyout is not ported yet")
+    if config.z_chunk_gate:
+        assert config.stream_block % CHUNK_G == 0, "stream_block must be a CHUNK_G multiple"
     b = bin_triangles(tri, config, y_offset=y_offset)
     BLK = config.stream_block
     NB = stream_blocks(config, tri.capacity, tri.num_src)

@@ -1,7 +1,9 @@
 """Presets of the port (port of ``xr/scene/presets.py``): config1 (flat
 cube), config2 (Gouraud icospheres), config3 (the headline textured
 terrain), config4 (Phong with a shadow map), config4b (config4 with two
-blended panes) and ``small_preset``. A preset bundles a host-side numpy Scene,
+blended panes), config5 (the deep fly-through scene), config6 and
+config6cap (the courtyard loaded from its OBJ, MTL and PNG files) and
+``small_preset``. A preset bundles a host-side numpy Scene,
 ``animate(t)`` returning numpy (Camera, model matrices), and the
 RenderConfig; ``xr_torch.convert.scene_to_torch`` moves the scene onto a
 device. The host matrix builders give the bits of the reference's numpy
@@ -10,6 +12,7 @@ ones."""
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -62,6 +65,12 @@ def translation(v) -> np.ndarray:
     m = np.eye(4, dtype=np.float32)
     m[:3, 3] = np.asarray(v, np.float32)
     return m
+
+
+def scaling(v) -> np.ndarray:
+    v = np.asarray(v, np.float32) * np.ones(3, np.float32)
+    o, i = np.zeros((), np.float32), np.ones((), np.float32)
+    return _mat4([[v[0], o, o, o], [o, v[1], o, o], [o, o, v[2], o], [o, o, o, i]])
 
 
 def config1_cube() -> Preset:
@@ -282,6 +291,143 @@ def config4_blend() -> Preset:
     return Preset("config4_blend", scene, base.animate, cfg)
 
 
+def config5_flythrough(nx: int = 708, nz: int = 708) -> Preset:
+    """Config 5 (``xr/scene/presets.py:292-370``): a fly-through of a deep
+    scene, a textured 2*nx*nz-triangle terrain (1,002,528 at the default
+    708x708) with 40 scaled boxes on it for occlusion; 1920x1080, 32x128
+    tiles. The reference shards it over 4 screen bands (num_shards=4);
+    the port renders it with num_shards=1 until bands are ported."""
+    terrain = proc.terrain(nx, nz, size=120.0, height=7.0, octaves=6, seed=13)
+    rng = np.random.default_rng(5)
+    objs = [terrain]
+    for _ in range(40):
+        # the reference's draws, in its order: position, height, footprint
+        x, z = rng.uniform(-40, 40, 2)
+        h = float(rng.uniform(1.5, 6.0))
+        b = proc.cube(1.0, mat=1)
+        m = translation((x, h * 0.5 + 1.0, z)) @ scaling(
+            (rng.uniform(1, 4), h, rng.uniform(1, 4))
+        )
+        objs.append(proc.transformed(b, m))
+    mesh = proc.with_vert_mat(proc.merge_meshes(objs))
+    pyramid = tx.build_pyramid([tx.noise_texture(256, seed=9), tx.checkerboard(256, 8)])
+    scene = Scene(
+        mesh=mesh,
+        materials=Material.table(
+            [
+                {"base_color": (1.0, 1.0, 1.0), "tex_id": 0},
+                {"base_color": (0.9, 0.85, 0.8), "tex_id": 1},
+            ]
+        ),
+        textures=pyramid,
+        lights=Lights.make(
+            dir_dirs=[(-0.3, -0.75, -0.55)],
+            dir_colors=[(1.0, 0.96, 0.88)],
+            ambient=(0.2, 0.2, 0.22),
+        ),
+        model_matrices=_identity_mats(),
+    )
+
+    def animate(t):
+        tf = np.asarray(t, np.float32)
+        ang = tf * 0.1
+        eye = np.stack(
+            [30.0 * np.cos(ang), 9.0 + 2.0 * np.sin(tf * 0.31), 30.0 * np.sin(ang)]
+        )
+        tgt = np.stack([12.0 * np.cos(ang + 0.7), 2.0 + 0.0 * tf, 12.0 * np.sin(ang + 0.7)])
+        cam = Camera(
+            eye=eye.astype(np.float32),
+            target=tgt.astype(np.float32),
+            up=np.asarray((0.0, 1.0, 0.0), np.float32),
+            fov_y=np.asarray(np.deg2rad(60.0), np.float32),
+            near=np.asarray(0.3, np.float32),
+            far=np.asarray(300.0, np.float32),
+        )
+        return cam, _identity_mats()
+
+    # The camera path is frozen and the record capacity is deliberately
+    # tight: the path's peak is ~390k post-cull triangles of 1.0M in,
+    # clip_expand 0.43 gives ~431k (about 1.1x). The overflow counters are
+    # loud if a retargeted path or mesh exceeds it; then re-measure the peak
+    # and keep >= 1.2x headroom. z_earlyout: a deep scene of mostly fully
+    # covered tiles (the flags cannot change the output).
+    cfg = RenderConfig(
+        width=1920, height=1080, mode=MODE_TEXTURED, num_shards=4,
+        tile_h=32, tile_w=128, bin_capacity=16384, large_capacity=4096,
+        clip_budget=8192, clip_expand=0.43, stream_expand=1.2, stream_block=256,
+        z_earlyout=True,
+    )
+    return Preset("config5_flythrough", scene, animate, cfg)
+
+
+def _courtyard_dir() -> str:
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    return os.path.join(root, "assets", "courtyard")
+
+
+def config6_asset(assets_dir: str = None, max_tex_rows: int = None) -> Preset:
+    """Config 6 (``xr/scene/presets.py:373-441``): the loaded-asset scene, a
+    96,456-triangle multi-material courtyard read from disk through the
+    whole asset path (OBJ -> MTL -> map_Kd PNGs of three sizes, one of them
+    clamped -> a ragged mip pyramid), Phong with a 1024^2 shadow map,
+    1920x1080. The assets are read from `assets_dir` (default: the
+    repository's ``assets/courtyard``) and never generated:
+    FileNotFoundError if the OBJ is missing. max_tex_rows is the
+    texture-area cap of build_ragged_pyramid (None = native quality)."""
+    from xr_torch.scene.objio import load_obj_scene
+
+    if assets_dir is None:
+        assets_dir = _courtyard_dir()
+    obj_path = os.path.join(assets_dir, "courtyard.obj")
+    if not os.path.exists(obj_path):
+        raise FileNotFoundError(f"courtyard asset not found: {obj_path}")
+
+    scene = load_obj_scene(
+        obj_path,
+        lights=Lights.make(
+            dir_dirs=[(-0.4, -0.85, -0.3), (0.5, -0.4, 0.6)],
+            dir_colors=[(1.0, 0.96, 0.88), (0.18, 0.2, 0.26)],
+            ambient=(0.16, 0.16, 0.18),
+        ),
+        max_tex_rows=max_tex_rows,
+    )
+
+    def animate(t):
+        tf = np.asarray(t, np.float32)
+        ang = 0.6 + tf * 0.15
+        eye = np.stack(
+            [13.0 * np.cos(ang), 5.5 + 0.8 * np.sin(tf * 0.4), 13.0 * np.sin(ang)]
+        )
+        cam = Camera(
+            eye=eye.astype(np.float32),
+            target=np.asarray((0.0, 1.8, 0.0), np.float32),
+            up=np.asarray((0.0, 1.0, 0.0), np.float32),
+            fov_y=np.asarray(np.deg2rad(55.0), np.float32),
+            near=np.asarray(0.3, np.float32),
+            far=np.asarray(90.0, np.float32),
+        )
+        return cam, _identity_mats()
+
+    # large_capacity 4096: the light-view depth pass bins the scene again at
+    # shadow-map resolution, where more courtyard walls span over 2x2 tiles
+    # than the default large bucket (1024) holds
+    cfg = RenderConfig(
+        width=1920, height=1080, mode=MODE_PHONG, shadow_map_size=1024,
+        tile_h=32, tile_w=128, bin_capacity=8192, clip_budget=4096,
+        large_capacity=4096, clip_expand=1.0, stream_expand=1.5, stream_block=256,
+    )
+    return Preset("config6_asset", scene, animate, cfg)
+
+
+def config6_capped() -> Preset:
+    """Config 6 under a texture-area cap of 300,000 quad-table rows: the 512
+    map renders from its own first mip, the other two are untouched (the
+    reference measured 39.1 dB PSNR against native at 480x270). The pair
+    config6/config6cap is the on/off comparison of the cap."""
+    p = config6_asset(max_tex_rows=300_000)
+    return Preset("config6cap", p.scene, p.animate, p.config)
+
+
 def small_preset(preset: Preset, width=160, height=120, **overrides) -> Preset:
     """Shrink a preset's framebuffer (tests, goldens)."""
     cfg = dataclasses.replace(preset.config, width=width, height=height, **overrides)
@@ -294,4 +440,7 @@ ALL_PRESETS = {
     "config3": config3_terrain,
     "config4": config4_phong,
     "config4b": config4_blend,
+    "config5": config5_flythrough,
+    "config6": config6_asset,
+    "config6cap": config6_capped,
 }

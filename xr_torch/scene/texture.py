@@ -1,5 +1,5 @@
-"""Textures and the flattened mip pyramid (host numpy; port of the uniform
-part of ``xr/scene/texture.py``). Quads are stored as int32 holding the
+"""Textures and the flattened mip pyramids, uniform and ragged (host numpy;
+port of ``xr/scene/texture.py``). Quads are stored as int32 holding the
 reference's u32 RGB8 bits."""
 
 from __future__ import annotations
@@ -8,7 +8,7 @@ from typing import Sequence
 
 import numpy as np
 
-from xr_torch.core.types import TexturePyramid
+from xr_torch.core.types import RaggedPyramid, TexturePyramid
 
 
 def _pack_quads(levels) -> np.ndarray:
@@ -68,6 +68,84 @@ def build_pyramid(images: Sequence[np.ndarray]) -> TexturePyramid:
         quads=np.stack(quads, axis=0).view(np.int32),
         base_size=s,
         num_levels=num_levels,
+    )
+
+
+def _mip_levels(im: np.ndarray):
+    """Box-filter mip chain of a square power-of-two image, down to 1x1."""
+    s = im.shape[0]
+    levels = [im.astype(np.float32)]
+    cur = levels[0]
+    for _ in range(s.bit_length() - 1):
+        cur = 0.25 * (
+            cur[0::2, 0::2] + cur[0::2, 1::2] + cur[1::2, 0::2] + cur[1::2, 1::2]
+        )
+        levels.append(cur.astype(np.float32))
+    return levels
+
+
+def chain_rows(size: int) -> int:
+    """Quad-table rows of one texture's full mip chain (a row a texel,
+    every level down to 1x1)."""
+    return sum((size >> k) ** 2 for k in range(size.bit_length()))
+
+
+def build_ragged_pyramid(
+    images: Sequence[np.ndarray], max_total_rows: int | None = None
+) -> RaggedPyramid:
+    """Mixed-size pyramid: each (S_i, S_i, 3) f32 square power-of-two
+    texture keeps its native size. The per-texture mip chains (the box
+    filter and 13-texel quad layout of build_pyramid) lie in one buffer
+    that per-(texture, level) offset and size tables index. Levels past a
+    texture's native chain repeat its 1x1 tail, so one static Lmax serves
+    every texture.
+
+    max_total_rows: optional texture area cap. While the quad table has
+    more rows, the largest texture is replaced by its own first
+    box-filtered mip (it loses only its finest level); ValueError if the
+    textures need more rows even at 1x1. Sampler semantics are unchanged.
+    """
+    imgs = [np.asarray(im, np.float32) for im in images]
+    for im in imgs:
+        s = im.shape[0]
+        assert s & (s - 1) == 0 and s > 0 and im.shape[:2] == (s, s), (
+            f"textures must be square power-of-two, got {im.shape}"
+        )
+    if max_total_rows is not None:
+        while sum(chain_rows(im.shape[0]) for im in imgs) > max_total_rows:
+            k = max(range(len(imgs)), key=lambda i: imgs[i].shape[0])
+            if imgs[k].shape[0] <= 1:
+                raise ValueError(
+                    f"max_total_rows={max_total_rows} unreachable: "
+                    f"{len(imgs)} textures need "
+                    f"{sum(chain_rows(im.shape[0]) for im in imgs)} rows "
+                    "even at 1x1"
+                )
+            imgs[k] = _mip_levels(imgs[k])[1]
+    lmax = max(im.shape[0].bit_length() for im in imgs)
+
+    flats, quads = [], []
+    offs = np.zeros((len(imgs), lmax), np.int64)
+    sizes = np.zeros((len(imgs), lmax), np.int64)
+    cursor = 0
+    for t, im in enumerate(imgs):
+        levels = _mip_levels(im)
+        q = _pack_quads(levels)
+        flats.append(np.concatenate([lv.reshape(-1, 3) for lv in levels]))
+        quads.append(q)
+        for k in range(lmax):
+            kk = min(k, len(levels) - 1)
+            sizes[t, k] = levels[kk].shape[0]
+            offs[t, k] = cursor + sum(levels[j].shape[0] ** 2 for j in range(kk))
+        cursor += q.shape[0]
+
+    return RaggedPyramid(
+        data=np.concatenate(flats, axis=0),
+        quads=np.concatenate(quads, axis=0).view(np.int32),
+        level_offset=offs.astype(np.int32),
+        level_size=sizes.astype(np.int32),
+        base_size_per_tex=np.asarray([im.shape[0] for im in imgs], np.int32),
+        num_levels=lmax,
     )
 
 

@@ -177,4 +177,5 @@ def _chunk_texture(tri, sl, scene: Scene, config: RenderConfig, u, v, uv_slot, e
     if pyr is None or pyr.num_levels == 0:
         return torch.ones(u.shape + (3,), dtype=F32, device=u.device)
     lod6 = [t[sl][:, None, None] for t in _lod_terms(tri, uv_slot, config)]
-    return _sample_texture(scene, u, v, lod6, e0, e1, e2, denom, mid[:, None, None])
+    return _sample_texture(scene, config, u, v, lod6, e0, e1, e2, denom,
+                           mid[:, None, None])

@@ -69,7 +69,7 @@ def _pack_records(tri, A: int, config: RenderConfig, uv_slot):
     return torch.cat(cols, dim=1), 7
 
 
-def _sample_texture(scene, u, v, lod6, e0, e1, e2, denom, mat_id):
+def _sample_texture(scene, config, u, v, lod6, e0, e1, e2, denom, mat_id):
     """Trilinear fetch with the analytic per-pixel LOD: u = Nu/D, so
     du/dx = (dNu/dx - u * dD/dx) / D with D = denom * area2. lod6 and mat_id
     broadcast against u (per pixel here, per record in the blend pass).
@@ -82,10 +82,18 @@ def _sample_texture(scene, u, v, lod6, e0, e1, e2, denom, mat_id):
     dudy = (lod6[3] - u * lod6[1]) * invD
     dvdx = (lod6[4] - v * lod6[0]) * invD
     dvdy = (lod6[5] - v * lod6[1]) * invD
-    tex_id = scene.materials.tex_id[mat_id.long()]
+    mats = scene.materials
+    tex_id = mats.tex_id[mat_id.long()]
     has_tex = tex_id >= 0
-    lod = sm.lod_from_derivs(dudx, dvdx, dudy, dvdy, pyr.base_size)
-    texc = sm.sample_trilinear(pyr, torch.where(has_tex, tex_id, 0), u, v, lod)
+    tid_safe = torch.where(has_tex, tex_id, 0)
+    if hasattr(pyr, "base_size_per_tex"):  # RaggedPyramid: per-pixel scale
+        base = pyr.base_size_per_tex[tid_safe.long()].to(F32)
+    else:
+        base = pyr.base_size
+    lod = sm.lod_from_derivs(dudx, dvdx, dudy, dvdy, base)
+    addr = None if mats.tex_addr is None else mats.tex_addr[mat_id.long()]
+    texc = sm.sample_trilinear(pyr, tid_safe, u, v, lod, addr=addr,
+                               mip_math=config.mip_math)
     return torch.where(has_tex[..., None], texc, 1.0)
 
 
@@ -145,7 +153,7 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig,
         if uv_slot is None:
             return torch.ones(u.shape + (3,), dtype=F32, device=u.device)
         lod6 = tuple(rec[:, lod_base + i] for i in range(6))
-        return _sample_texture(scene, u, v, lod6, e0, e1, e2, denom, mat_id)
+        return _sample_texture(scene, config, u, v, lod6, e0, e1, e2, denom, mat_id)
 
     if config.mode == MODE_TEXTURED:
         lit = torch.stack([attr(2), attr(3), attr(4)], dim=-1)

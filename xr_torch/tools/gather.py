@@ -8,7 +8,11 @@ are the algorithm of the kernels that first write the channel-major table
 row-major (``table_rows_plain``: (S, W) -> (W, S), so that the S values of
 one index are one contiguous row) and gather whole rows: the 16-channel
 quad gather runs it on the card, the lane gather as a variant of the sweep
-tool. They equal the definitions bit for bit.
+tool. ``quad_gather1_slices_plain`` is the algorithm of the one-channel
+gather's slice design, another variant of the sweep tool (the shipped
+kernel reads the row in place): the row cut into slices that fit a CTA's
+shared memory, every element written once, by the slice that holds its
+index. They equal the definitions bit for bit.
 
 u32 tables travel as int32 bit patterns (torch's uint32 has few kernels);
 an index outside the table row reads as 0 in the kernels and in the plain
@@ -80,6 +84,42 @@ def quad_gather1_plain(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     one-channel gather."""
     i, ok = _in_row(idx, tab.shape[1])
     return torch.where(ok, tab[0][i], 0)
+
+
+P3_SLICE_WORDS = 200 * 256  # the most words of a slice (csrc/gather.cu, XR_P3_SLICE_KB)
+
+
+def quad_gather1_slices(width: int, slice_words: int = P3_SLICE_WORDS):
+    """The slice design's cut of a row of `width` words: (K, sw), K slices of sw
+    words (a multiple of 4, at most slice_words), the last one shorter."""
+    k = -(-width // slice_words)
+    sw = -(-(-(-width // k)) // 4) * 4
+    return -(-width // sw), sw
+
+
+def quad_gather1_slices_plain(idx: torch.Tensor, tab: torch.Tensor,
+                              slice_words: int = P3_SLICE_WORDS, writes=None) -> torch.Tensor:
+    """``quad_gather1_plain`` by the slice design's algorithm: slice k holds words
+    [k * sw, (k + 1) * sw) of row 0; an element is written by the slice its
+    index falls into, and by slice 0 (as 0) where the index is outside the
+    row. No element is written twice and none is left: `writes`, if given
+    (zeros of idx's shape), counts them."""
+    PP = tab.shape[1]
+    K, sw = quad_gather1_slices(PP, slice_words)
+    out = torch.empty_like(idx)
+    for k in range(K):
+        lo = k * sw
+        words = min(sw, PP - lo)
+        part = tab[0, lo:lo + words]
+        hit = (idx >= lo) & (idx < lo + words)
+        out[hit] = part[(idx[hit] - lo).long()]
+        if k == 0:
+            outside = (idx < 0) | (idx >= PP)
+            out[outside] = 0
+            hit = hit | outside
+        if writes is not None:
+            writes += hit
+    return out
 
 
 def lane_gather(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:

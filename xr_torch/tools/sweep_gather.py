@@ -6,15 +6,19 @@ Rebuilds csrc/gather.cu once per variant (``-D`` macros, see the source's
 header: the design of the lane gather P1 and of the 16-channel quad gather
 P2, threads a CTA, table rows a thread, lanes an index, the columns of a
 transpose tile, the table size from which P1 transposes, the dependent
-launch of a launch's second kernel, the prefetch pass; the empty variant is
-the source as it stands) and, in one process, holds every variant
-bit for bit against the plain versions (the tools' indices, uniformly
-random ones, indices outside the row, S = 13 for P2, a second launch
-against the first and the launch after the timed ones) and times it with a
+launch of a launch's second kernel, the prefetch pass, the design of the
+one-channel gather P3 with its threads, unroll, slice size, interleaving
+and the ratio of indices to table words from which it takes its slices; the
+empty variant is the source as it stands) and, in one process, holds every
+variant bit for bit against the plain versions (the tools' indices,
+uniformly random ones, indices outside the row, S = 13 for P2, P3 also on a
+second table of odd width and on one that does not start on 16 bytes, in
+turn with the first, a second launch against the first and the launch
+after the timed ones) and times it with a
 cold L2 (a 128 MB write before each launch, events around the launch alone)
 and with a warm one, every launch queued behind a spin on the device
 (``timing.device_ms``). P1 is timed at the probe's four shapes, P2 and the
-one-channel gather P3 at the full 2,073,600-index shape, P2 also on random
+one-channel gather P3 at the full 2,073,600-index shape, both also on random
 indices. Design 0 is the one-thread-an-element kernel that reads the table
 in place; the list starts and ends with it, so that a drift of the card
 shows. ``P2_NO_TRANSPOSE`` and ``P2_NO_GATHER`` compile one of P2's two
@@ -41,7 +45,11 @@ import numpy as np
 import torch
 
 VARIANTS = (
-    "P1_DESIGN=0,P2_DESIGN=0",
+    "P1_DESIGN=0,P2_DESIGN=0,P3_DESIGN=0",
+    "P3_DESIGN=0", "P3_DESIGN=1", "P3_DESIGN=2", "P3_DESIGN=2,P3_THREADS=512",
+    "P3_DESIGN=2,P3_UNROLL=2", "P3_DESIGN=2,P3_UNROLL=8", "P3_DESIGN=2,P3_UNROLL=16",
+    "P3_DESIGN=2,P3_SLICE_KB=100", "P3_DESIGN=2,P3_MIN_RATIO=0",
+    "P3_DESIGN=2,P3_INTERLEAVE=1,P3_UNROLL=8", "P3_DESIGN=0",
     "", "PDL=0", "T_ANY,PDL=0,P2_THREADS=256", "T_ANY,PDL=0,P2_THREADS=256,P1_ROWS_MIN=0",
     "T_COLS=128",
     "P2_LANES=2", "P2_LANES=1", "P2_LANES=8", "P2_THREADS=256", "P2_THREADS=512",
@@ -50,7 +58,7 @@ VARIANTS = (
     "P1_DESIGN=1,P1_ROWS=4", "P1_DESIGN=1,P1_ROWS=8", "P1_DESIGN=1,P1_ROWS=16",
     "P1_DESIGN=1,P1_ROWS=32", "P1_DESIGN=1,P1_ROWS=8,P1_THREADS=128",
     "P1_DESIGN=1,P1_ROWS=8,P1_PREFETCH=1", "P1_DESIGN=1,P1_ROWS=8,P1_PREFETCH=2",
-    "", "P1_DESIGN=0,P2_DESIGN=0",
+    "", "P1_DESIGN=0,P2_DESIGN=0,P3_DESIGN=0",
 )
 PROBES = ("P2_NO_TRANSPOSE", "P2_NO_GATHER")
 
@@ -103,8 +111,15 @@ def _inputs(dev) -> dict:
         "random": on(rng.integers(0, pp, flat_h.shape).astype(np.int32)),
         # one in eight outside the row, on either side
         "outside": on(rng.integers(-pp // 16, pp + pp // 16, (997, 131)).astype(np.int32)),
+        "outside_full": on(rng.integers(-pp // 16, pp + pp // 16, flat_h.shape).astype(np.int32)),
         "lanes": [],
     }
+    # P3's other tables: an odd width (a slice that ends on single words),
+    # and the same words one word off a 16-byte boundary
+    odd = rng.integers(-2**31, 2**31, (2, 100_003)).astype(np.int32)
+    shifted = on(np.concatenate([[0], odd.reshape(-1)]).astype(np.int32))[1:].view(2, 100_003)
+    inp["p3_tables"] = [inp["tab"], on(odd), shifted]
+    inp["p3_idx"] = on(rng.integers(-9_000, 109_000, flat_h.shape).astype(np.int32))
     for width, subl, dtype in plg.SHAPES:
         tab, idx, _ = plg.make_inputs(width, subl, dtype)
         W = tab.shape[1]
@@ -126,6 +141,22 @@ def _times(fn, flush, reps=50) -> dict:
     return {"cold_ms": cold, "warm_ms": warm, "reps": n}
 
 
+def check_p3(inp: dict) -> bool:
+    """The one-channel gather against its plain version: the tool's
+    indices, random ones, ones outside the row (few, and as many as the
+    tool's), and three tables in turn, twice."""
+    from xr_torch.tools import gather
+
+    ok = True
+    for i in (inp["flat"], inp["random"], inp["outside"], inp["outside_full"]):
+        ok &= _same(gather.quad_gather1(i, inp["tab"]), gather.quad_gather1_plain(i, inp["tab"]))
+    for _ in range(2):
+        for tab in inp["p3_tables"]:
+            i = inp["flat"] if tab is inp["tab"] else inp["p3_idx"]
+            ok &= _same(gather.quad_gather1(i, tab), gather.quad_gather1_plain(i, tab))
+    return ok
+
+
 def run_variant(spec: str, inp: dict, flush: torch.Tensor) -> dict:
     """Build one variant, check it and time what it changes."""
     from xr_torch.tools import gather
@@ -137,7 +168,16 @@ def run_variant(spec: str, inp: dict, flush: torch.Tensor) -> dict:
     # a variant that names macros of one kernel only is timed on that kernel
     only_p1 = bool(macros) and all(m.startswith("P1_") or m.startswith("G_") for m in macros)
     only_p2 = bool(macros) and all(m.startswith("P2_") for m in macros)
-    if not only_p1:
+    only_p3 = bool(macros) and all(m.startswith("P3_") for m in macros)
+    if not (only_p1 or only_p2):
+        flat, tab = inp["flat"], inp["tab"]
+        exact = check_p3(inp)
+        row["quad_gather1"] = _times(lambda: gather.quad_gather1(flat, tab), flush)
+        row["quad_gather1 random idx"] = _times(
+            lambda: gather.quad_gather1(inp["random"], tab), flush)
+        exact = exact and _same(gather.quad_gather1(flat, tab),
+                                gather.quad_gather1_plain(flat, tab))
+    if not (only_p1 or only_p3):
         flat, tab = inp["flat"], inp["tab"]
         want = gather.quad_gather_plain(flat, tab)
         first = gather.quad_gather(flat, tab)
@@ -155,9 +195,8 @@ def run_variant(spec: str, inp: dict, flush: torch.Tensor) -> dict:
         checks.append(_same(gather.quad_gather(flat, tab), want))
         row["quad_gather random idx"] = _times(
             lambda: gather.quad_gather(inp["random"], tab), flush)
-        row["quad_gather1"] = _times(lambda: gather.quad_gather1(flat, tab), flush)
         exact = exact and all(checks)
-    if not only_p2:
+    if not (only_p2 or only_p3):
         for label, tab, idx, outside in inp["lanes"]:
             want = gather.lane_gather_plain(idx, tab)
             first = gather.lane_gather(idx, tab)
