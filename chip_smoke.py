@@ -23,8 +23,14 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      (1,003,008 triangles in) at t = 3.0 as the preset sets it (z_earlyout
      on) and with the flag off, which must give the same bits (the plain
      fold over 431,358 record slots is compared once and timed by that one
-     call if it takes over 5 s); times both kernels and their plain versions on the full
-     frames, beside the bound of each launch (the bytes and the integer
+     call if it takes over 5 s); the stream kernel on config7's full frame
+     (177,920 triangles, every capacity measured by its dry pass on the
+     card, z_earlyout on) at t = 13 and 26; both kernels on config3 at golden
+     size and in full under bin_zorder, bin_pairs=2 and bin_pairs=2 with a
+     quad budget of 2 (which must send quads to the large bucket), with the
+     depth test and in painter's order, each also bit-exact against the
+     option-free output; times both kernels and their plain versions on the
+     full frames, beside the bound of each launch (the bytes and the integer
      operations no exact design avoids, _vis_work), and holds the output of
      the launch after the 50 timed ones against the plain version and
      against the first launch's
@@ -39,14 +45,21 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      that computes it (P1, P3; two calls for P2) and its bound
   5. golden: config1 (brute force), config2 (128x128 tiles, stream kernel),
      config3, config4 and config4b (two passes), config5 (a 64x64 terrain,
-     num_shards 1), config6 and config6cap (two passes) at golden size
-     through Renderer on the card against tests/goldens/ (<= 1 LSB;
-     config4/4b/6/6cap at most max(2, 0.1 %) pixels past it, the shadow-edge
-     rule of tests/test_goldens.py), coverage within 1e-6
+     num_shards 1), config6 and config6cap (two passes) and config7 (n0=64,
+     its config sized on the card, which must equal the one sized on the
+     CPU) at golden size through Renderer on the card against tests/goldens/
+     (<= 1 LSB; config4/4b/6/6cap at most max(2, 0.1 %) pixels past it, the
+     shadow-edge rule of tests/test_goldens.py), coverage within 1e-6
   6. main path, each run with the launch counts set to 0 just before it
      and read just after, one warm-up frame first:
      - config3 at 1920x1080 (100,352 triangles), 30 frames through
-       Renderer.step + readback; the stream kernel in every frame
+       Renderer.step + readback; the stream kernel in every frame; then the
+       same cameras under bin_zorder + z_earlyout and under bin_pairs=2,
+       byte-equal to those frames; then the app layer: 10 frames with
+       debug_checks (every nf_* 0, beside 10 without), a NaN vertex through
+       the stream kernel (no fault, strict readback names the input stage),
+       a shade_hook reading frag.depth, and 10 frames with
+       recycle_framebuffers=False equal to the recycled ones
      - config2 at 1920x1080 (11,520 triangles), 30 frames with
        backend="pallas_smem" (the list kernel in every frame), then the
        same cameras with backend="auto" (the stream kernel): identical
@@ -67,6 +80,10 @@ Phases, each of which raises on failure (exit code != 0, no final line):
        1920x1080 with num_shards=1, 10 frames at t = 1.0 ... 10.0 of its
        frozen camera path, the stream kernel once a frame, every overflow
        counter 0; prints the peak device memory
+     - config7 (177,920 triangles, the LOD terrain) at 1920x1080, 30 frames
+       at t = 1.3 ... 39 of its camera path, the stream kernel once a frame,
+       every overflow counter 0; prints tris_setup beside the record
+       capacity its dry pass measured and the peak device memory
      - one config3 frame through present() + flush() (the host copy started
        when the frame is queued, into pinned memory) against step() +
        readback(): the same bytes
@@ -103,6 +120,11 @@ LIST_CASES = {
     "large_bucket": {"medium_capacity": 0, "tile_h": 8},
     "painter": {"depth_test": False},
     "lists_overflow": {"bin_capacity": 64},
+}
+BIN_OPTIONS = {
+    "bin_zorder": {"bin_zorder": True},
+    "bin_pairs=2": {"bin_pairs": 2},
+    "bin_pairs=2 quad 2": {"bin_pairs": 2, "bin_quad_capacity": 2},
 }
 SOURCES = {
     "vis_stream": ("xr_torch/csrc/vis_stream.cu", "xr/raster/pallas_stream.py:80"),
@@ -152,7 +174,9 @@ def _preset(name: str, full: bool = False):
     """The presets as published, host side (built once a run); config3's
     terrain is 48x48 quads at golden size and 224x224 (100,352 triangles)
     in full, config5's 64x64 and 708x708 (1,003,008 triangles with its
-    boxes); config5 runs with num_shards=1, the golden's own override."""
+    boxes); config5 runs with num_shards=1, the golden's own override;
+    config7's LOD terrain is n0=64 at golden size and n0=160 (177,920
+    triangles) in full."""
     from xr_torch.scene import presets
 
     if name == "config3":
@@ -162,6 +186,8 @@ def _preset(name: str, full: bool = False):
         n = 708 if full else 64
         p = presets.config5_flythrough(n, n)
         return p._replace(config=dataclasses.replace(p.config, num_shards=1))
+    if name == "config7":  # capacities measured by its dry pass on the card
+        return presets.config7_terrain_lod(160 if full else 64, device="cuda")
     return presets.ALL_PRESETS[name]()
 
 
@@ -325,7 +351,7 @@ def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clo
     chunks = inp.item_start[1:] - inp.item_start[:-1]
     out = {"max_abs_err": err, "large_count": int(inp.large_count),
            "dropped": int(inp.dropped), "bg": bg, "max_chunks": int(chunks.max()),
-           "one_chunk_tiles": int((chunks == 1).sum())}
+           "one_chunk_tiles": int((chunks == 1).sum()), "vis": (tk, zk)}
     line += f" chunks={int(chunks.sum())} (most in a tile {out['max_chunks']})"
     if time_it:
         # 50 launches queued behind ~20 ms of spinning: device time
@@ -454,6 +480,42 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
             raise AssertionError(f"full config5: {x}")
     del scene
 
+    # config7: the LOD terrain's full frame (177,920 triangles) as its
+    # preset sizes it, every capacity measured, z_earlyout on, at two of the
+    # sample times of its dry pass
+    for t in (13.0, 26.0):
+        p, cam, scene = _setup(dev, _preset("config7", full=True), 1920, 1080, t)
+        r = run("vis_stream", p, {}, scene, cam, f"full config7 t={t}", time_it=t == 26.0)
+        if r["dropped"] or not p.config.z_earlyout or r["bg"] == 1920 * 1080:
+            raise AssertionError(f"full config7 t={t}: {r}")
+    del scene
+
+    # the bin options on config3 at golden size and in full: segments out
+    # of id order (bin_zorder) and walks that hold an id twice (bin_pairs=2,
+    # whose 2x2-spanning triangles past a quad budget of 2 also ride the
+    # large bucket); each against its plain version and the option-free
+    # output, with the depth test and in painter's order
+    m = _manifest("config3")
+    for label, (p, cam, scene) in (
+            ("golden", _setup(dev, _preset("config3"), m["width"], m["height"], m["t"],
+                              **m["overrides"])),
+            ("full", _setup(dev, _preset("config3", full=True), 1920, 1080, 0.3))):
+        for kernel in ("vis_stream", "vis_lists"):
+            for depth_test in (True, False):
+                mode = "depth" if depth_test else "painter"
+                base = run(kernel, p, {"depth_test": depth_test}, scene, cam,
+                           f"config3 {label} {mode}")
+                for opt, over in BIN_OPTIONS.items():
+                    r = run(kernel, p, {"depth_test": depth_test, **over}, scene, cam,
+                            f"config3 {label} {mode} {opt}")
+                    what = f"{kernel} config3 {label} {mode} {opt}"
+                    _same_vis(what, "the option-free output", r["vis"], base["vis"])
+                    if r["dropped"] or base["dropped"]:
+                        raise AssertionError(f"{what}: dropped {r['dropped']}")
+                    if opt.endswith("quad 2") and not r["large_count"] > base["large_count"]:
+                        raise AssertionError(f"{what}: no quad rode the large bucket: {r}")
+    del scene
+
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "pairs", "bbox_pixels", "bytes")
     return {
         "vis_stream": {"max_abs_err": max(errs["vis_stream"]), "library_ms": None,
@@ -579,8 +641,17 @@ def phase_golden(dev) -> None:
     from xr_torch import Renderer, kernels
     from xr_torch.core.image import read_png
 
+    from xr_torch.scene import presets
+
+    # config7's dry pass on the card measures what it measures on the CPU
+    card, cpu = _preset("config7").config, presets.config7_terrain_lod(64, device="cpu").config
+    if card != cpu:
+        raise AssertionError(f"config7 sized on the card {card} differs from the CPU's {cpu}")
+    log(f"config7 n0=64: the config sized on the card equals the CPU's "
+        f"(clip_expand {card.clip_expand!r}, bin_capacity {card.bin_capacity}, "
+        f"stream_entry_cap {card.stream_entry_cap})")
     for name in ("config1", "config2", "config3", "config4", "config4b", "config5", "config6",
-                 "config6cap"):
+                 "config6cap", "config7"):
         m = _manifest(name)
         p, cam, scene = _setup(dev, _preset(name), m["width"], m["height"], m["t"],
                                **m["overrides"])
@@ -646,13 +717,13 @@ def _stage_times(dev, p, cam, scene, kernel="vis_stream", reps=10) -> dict:
     return out
 
 
-def _run_frames(dev, scene, cfg, cams):
+def _run_frames(dev, scene, cfg, cams, **renderer_kw):
     """One warm-up frame, then one frame per camera through Renderer.step +
     readback, with the launch counts set to 0 just before the timed frames
     and read just after. Returns (ms per frame, host frames, launches)."""
     from xr_torch import Renderer, kernels
 
-    r = Renderer(scene, cfg, dev)
+    r = Renderer(scene, cfg, dev, **renderer_kw)
     r.readback(r.step(scene, cams[0]))  # warm-up
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -715,6 +786,25 @@ def phase_main_path(dev) -> dict:
     _log_run("config3", p.config, scene.mesh.num_triangles, times, launches)
     log("frame stats (t=0.05): " + ", ".join(f"{k}={int(v)}" for k, v in frames[0].stats.items()))
     _log_stages("config3 t=0.3", _stage_times(dev, p, cams[5], scene))
+
+    # config3 under each bin option on the same cameras: the same bytes, and
+    # the stage line of each (the bin+prep stage is the one they change)
+    for label, over in (("bin_zorder+z_earlyout", {"bin_zorder": True, "z_earlyout": True}),
+                        ("bin_pairs=2", {"bin_pairs": 2})):
+        cfg = dataclasses.replace(p.config, **over)
+        times, got, launches = _run_frames(dev, scene, cfg, cams)
+        if launches["vis_stream"] < 30 or launches["vis_lists"]:
+            raise AssertionError(f"config3 {label}: launches {launches} in 30 frames")
+        count(launches)
+        _same_frames(f"config3 {label} against config3", got, frames)
+        _log_run(f"config3 {label}", cfg, scene.mesh.num_triangles, times, launches)
+        _log_stages(f"config3 {label} t=0.3", _stage_times(dev, p._replace(config=cfg), cams[5],
+                                                           scene))
+    del got
+    _bin_prep_turns(p, cams[5], scene, {"bin_zorder": {"bin_zorder": True},
+                                         "bin_pairs=2": {"bin_pairs": 2}})
+    for launches in _app_layer(dev, p, scene, cams, frames):
+        count(launches)
     del frames
 
     # config2: Gouraud icospheres, list kernel (pallas_smem) against the
@@ -835,7 +925,124 @@ def phase_main_path(dev) -> dict:
         f"{peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
     _log_stages("config5 t=3.0", _stage_times(dev, p, cams[2], scene))
     del frames
+
+    # config7: the LOD terrain along its camera path (t = 1.3 ... 39, the
+    # span its dry pass sampled), every capacity measured, one device
+    p, _, scene = _setup(dev, _preset("config7", full=True), 1920, 1080, 0.0)
+    if scene.mesh.num_triangles != 177_920 or not p.config.z_earlyout:
+        raise AssertionError("config7 must have 177,920 triangles and set z_earlyout")
+    cams = [p.animate(1.3 * (i + 1))[0] for i in range(30)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, frames, launches = _run_frames(dev, scene, p.config, cams)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches["vis_stream"] != len(cams) or launches["vis_lists"]:
+        raise AssertionError(f"config7: launches {launches} in {len(cams)} frames")
+    _coverage_between(frames, 0.3, 1.0)
+    count(launches)
+    _log_run("config7 (t=1.3..39)", p.config, scene.mesh.num_triangles, times, launches)
+    log("config7 tris_setup by frame: " + ", ".join(str(int(f.stats["tris_setup"])) for f in frames)
+        + f"; record capacity {_capacity(scene, p.config)}; peak device memory "
+        f"{peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
+    _log_stages("config7 t=13.0", _stage_times(dev, p, p.animate(13.0)[0], scene))
+    del frames
     return total
+
+
+def _bin_prep_turns(p, cam, scene, options, rounds=5) -> None:
+    """The bin+prep stage (stream.prepare) of one frame with and without
+    each option, timed in turns (CUDA events around 10 host-enqueued
+    calls, as the stage line), so the host clock's drift falls on all
+    alike; prints the median and the range of each."""
+    from xr_torch.app import renderer
+    from xr_torch.raster import stream
+
+    _, view, proj = renderer.camera_matrices(scene, cam, p.config)
+    _, tri = renderer.visible_triangles(scene, view, proj, p.config, _capacity(scene, p.config))
+    cfgs = {"none": p.config, **{k: dataclasses.replace(p.config, **v) for k, v in options.items()}}
+    ms = {k: [] for k in cfgs}
+    for _ in range(rounds):
+        for k, cfg in cfgs.items():
+            ms[k].append(cuda_ms(lambda: stream.prepare(tri, cfg), reps=10))
+    log("bin+prep in turns, config3 1920x1080 t=0.3 (ms, CUDA events, median [min, max] of "
+        f"{rounds} rounds of 10 calls): "
+        + ", ".join(f"{k} {float(np.median(v)):.3f} [{min(v):.3f}, {max(v):.3f}]"
+                    for k, v in ms.items()))
+
+
+def _app_layer(dev, p, scene, cams, frames) -> list:
+    """config3 at 1920x1080 through the app layer's options, against the
+    plain frames of the same cameras: debug_checks (every nf_* 0, its cost
+    in ms per frame), a NaN vertex through the stream kernel (no fault;
+    strict readback names the input stage), a shade_hook reading
+    frag.depth, and recycle_framebuffers=False (the same bytes). Returns
+    the launches of each run, each counted from 0 just before it."""
+    from xr_torch import Renderer, kernels
+
+    n, runs = 10, []
+    dbg = dataclasses.replace(p.config, debug_checks=True)
+    ms = {"with": [], "without": []}
+    for _ in range(3):  # in turns: the host clock drifts between runs
+        times, got, launches = _run_frames(dev, scene, dbg, cams[:n])
+        runs.append(launches)
+        ms["with"].append(float(np.mean(times)))
+        for f in got:
+            nf = {k: int(v) for k, v in f.stats.items() if k.startswith("nf_")}
+            if len(nf) != 4 or any(nf.values()):
+                raise AssertionError(f"debug_checks on a clean frame: {nf}")
+        _same_frames("config3 debug_checks against config3", got, frames[:n])
+        times, _, launches = _run_frames(dev, scene, p.config, cams[:n])
+        runs.append(launches)
+        ms["without"].append(float(np.mean(times)))
+    log(f"debug_checks: config3 1920x1080, 3 rounds of {n} frames in turns, mean ms/frame "
+        f"with it {ms['with']}, without {ms['without']} (step + readback, host clock); "
+        "every nf_* 0")
+
+    def one_frame(r, sc):
+        kernels.reset_launches()
+        f = r.step(sc, cams[0])
+        torch.cuda.synchronize()
+        runs.append(dict(kernels.launches))
+        if runs[-1]["vis_stream"] != 1:
+            raise AssertionError(f"one frame launched {runs[-1]}")
+        return f
+
+    pos = scene.mesh.positions.clone()
+    pos[7, 1] = float("nan")
+    r = Renderer(scene, dbg, dev)
+    f = one_frame(r, scene.replace(mesh=scene.mesh.replace(positions=pos)))
+    try:
+        r.readback(f)
+    except RuntimeError as e:
+        if "input stage" not in str(e):
+            raise
+        log(f"NaN vertex through the stream kernel: no fault; strict readback raised: {e}")
+    else:
+        raise AssertionError("a NaN vertex read back without a raise")
+    if not np.array_equal(r.readback(one_frame(r, scene)).color, frames[0].color):
+        raise AssertionError("the frame after the NaN frame is not config3's")
+
+    seen = {}
+
+    def fog(color, scene_, mat_id, xp, frag=None):
+        seen["depth"] = frag.depth
+        f = torch.clamp(frag.depth * 1.5, 0.0, 1.0)[..., None]
+        return color * (1.0 - f) + f
+
+    r = Renderer(scene, p.config, dev, shade_hook=fog)
+    hooked = r.readback(one_frame(r, scene))
+    fg = hooked.depth < 1.0
+    if (seen["depth"].device != scene.mesh.positions.device
+            or not np.array_equal(hooked.depth, frames[0].depth)
+            or not hooked.color[fg].astype(int).sum() > frames[0].color[fg].astype(int).sum()
+            or not np.array_equal(hooked.color[~fg], frames[0].color[~fg])):
+        raise AssertionError("shade_hook: the fogged frame is not config3's brightened by depth")
+    log("shade_hook reading frag.depth (fog by depth): covered pixels brighter, background and "
+        "depth unchanged")
+
+    _, got, launches = _run_frames(dev, scene, p.config, cams[:n], recycle_framebuffers=False)
+    runs.append(launches)
+    _same_frames("config3 recycle_framebuffers=False against recycled", got, frames[:n])
+    return runs
 
 
 def _capacity(scene, cfg) -> int:
@@ -867,12 +1074,14 @@ def phase_present(dev) -> None:
 
 
 def _same_frames(label, a_frames, b_frames) -> None:
+    """Raise unless the two runs' frames hold the same color and depth
+    bytes and the same stats (those of b_frames)."""
     for i, (a, b) in enumerate(zip(a_frames, b_frames)):
         if not (np.array_equal(a.color, b.color) and np.array_equal(a.depth, b.depth)):
-            raise AssertionError(f"{label} frame {i}: the backends' frames differ")
-        if any(int(a.stats[k]) != int(b.stats[k]) for k in a.stats):
+            raise AssertionError(f"{label} frame {i}: the frames differ")
+        if any(int(a.stats[k]) != int(b.stats[k]) for k in b.stats):
             raise AssertionError(f"{label} frame {i}: stats differ {a.stats} vs {b.stats}")
-    log(f"{label}: the {len(a_frames)} frames of the two backends are equal (color, depth, stats)")
+    log(f"{label}: the {len(a_frames)} frames of the two runs are equal (color, depth, stats)")
 
 
 def phase_gather_tools(dev) -> dict:

@@ -8,7 +8,12 @@ the gather kernels (P1-P3) bit for bit (also on indices outside the row, on
 odd shapes and launched repeatedly on two tables in turn), the stream kernel on config6's shadow pass, a frame
 through present against readback, and frames through Renderer on CUDA
 equal to the frames on the CPU (config4/4b: shadow edges may flip, so at
-most max(2, 0.1 %) pixels past 1 LSB, the golden rule). These
+most max(2, 0.1 %) pixels past 1 LSB, the golden rule; config7 with its
+measured capacities); both kernels under the bin options (bin_zorder,
+bin_pairs=2 with the quad budget ample and 2), against their plain versions
+and the option-free output, config7's config measured on the card against
+the CPU's, and the app layer on the card (debug_checks with a NaN vertex,
+a shade_hook reading frag.depth, recycle_framebuffers=False). These
 tests need a CUDA device and skip without one. On a machine with a card
 and no JAX, run them without the suite's conftest (which imports JAX):
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``."""
@@ -187,7 +192,8 @@ def test_list_kernel_config2(cuda, cap, dropped):
 
 PRESETS = {"config1": presets.config1_cube, "config2": presets.config2_icospheres,
            "config3": lambda: presets.config3_terrain(48, 48),
-           "config4": presets.config4_phong, "config4b": presets.config4_blend}
+           "config4": presets.config4_phong, "config4b": presets.config4_blend,
+           "config7": lambda: presets.config7_terrain_lod(64, device="cpu")}
 
 
 @pytest.mark.parametrize("name", sorted(PRESETS))
@@ -371,3 +377,72 @@ def test_stream_kernel_on_config6_shadow_pass(cuda):
     inp = stream.prepare(geometry(scene, lv, lp, cfg), cfg)
     _same(stream.vis_stream(inp, cfg), stream.vis_stream_plain(inp, cfg))
     assert int(inp.dropped) == 0
+
+
+BIN_OPTIONS = {
+    "zorder": {"bin_zorder": True, "z_earlyout": True},
+    "pairs2": {"bin_pairs": 2},
+    "pairs2_quad2": {"bin_pairs": 2, "bin_quad_capacity": 2},
+    "zorder_pairs2": {"bin_zorder": True, "bin_pairs": 2},
+}
+
+
+@pytest.mark.parametrize("depth_test", [True, False], ids=["depth", "painter"])
+@pytest.mark.parametrize("option", sorted(BIN_OPTIONS))
+@pytest.mark.parametrize("kernel", sorted(MATCHES_PLAIN))
+def test_kernels_under_bin_options(cuda, kernel, option, depth_test):
+    """Segments out of id order and the same id twice in a walk: each
+    kernel equals its plain version and its own option-free output."""
+    p, cam, scene = _scene(cuda)
+    base = dataclasses.replace(p.config, depth_test=depth_test)
+    cfg = dataclasses.replace(base, **BIN_OPTIONS[option])
+    inp = MATCHES_PLAIN[kernel](cuda, p, cam, scene, cfg)
+    ref = MATCHES_PLAIN[kernel](cuda, p, cam, scene, base)
+    launch = stream.vis_stream if kernel == "vis_stream" else smem.vis_lists
+    _same(launch(inp, cfg), launch(ref, base))
+    assert int(inp.dropped) == int(ref.dropped) == 0
+    if option == "pairs2_quad2":
+        assert int(inp.large_count) > int(ref.large_count)
+
+
+def test_config7_config_on_the_card_equals_cpu(cuda):
+    got = presets.config7_terrain_lod(64, device=cuda).config
+    assert got == presets.config7_terrain_lod(64, device="cpu").config
+
+
+def test_app_layer_on_the_card(cuda):
+    """debug_checks: a clean frame has every nf_* at 0, a NaN vertex does
+    not fault and strict readback names the input stage; a shade_hook
+    reading frag.depth equals the CPU's hooked frame within 1 LSB; frames
+    with recycle_framebuffers=False equal the recycled ones."""
+    p, cam, scene = _scene(cuda)
+    cfg = dataclasses.replace(p.config, debug_checks=True)
+    r = Renderer(scene, cfg, cuda)
+    f = r.readback(r.step(scene, cam))
+    assert {k: int(v) for k, v in f.stats.items() if k.startswith("nf_")} == dict.fromkeys(
+        ("nf_0_input", "nf_1_geometry", "nf_2_visibility", "nf_3_shading"), 0)
+    pos = scene.mesh.positions.clone()
+    pos[7, 1] = float("nan")
+    bad = r.step(scene.replace(mesh=scene.mesh.replace(positions=pos)), cam)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="input stage"):
+        r.readback(bad)
+
+    def fog(color, scene_, mat_id, xp, frag=None):
+        f = torch.clamp(frag.depth * 1.5, 0.0, 1.0)[..., None]
+        return color * (1.0 - f) + f
+
+    rc = Renderer(scene, p.config, cuda, shade_hook=fog)
+    fc = rc.readback(rc.step(scene, cam))
+    cpu = convert.scene_to_torch(p.scene.replace(model_matrices=p.animate(0.3)[1]), "cpu")
+    rh = Renderer(cpu, p.config, "cpu", shade_hook=fog)
+    fh = rh.readback(rh.step(cpu, cam))
+    assert np.abs(fc.color.astype(int) - fh.color.astype(int)).max() <= 1
+
+    fresh = Renderer(scene, p.config, cuda, recycle_framebuffers=False)
+    plain = Renderer(scene, p.config, cuda)
+    for t in (0.3, 0.6, 0.9):
+        c = p.animate(t)[0]
+        a, b = fresh.readback(fresh.step(scene, c)), plain.readback(plain.step(scene, c))
+        assert np.array_equal(a.color, b.color) and np.array_equal(a.depth, b.depth)
+    assert not fresh._pool

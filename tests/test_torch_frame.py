@@ -7,9 +7,10 @@ config6 and config6cap by the shadow-edge rules of tests/test_goldens.py
 and tests/test_torch_phong.py. Also the Renderer's buffers and present
 queue, the layout axes, the options ported since the first slice (Phong,
 shadows and blending on the small terrain, the z early-out flags, the
-identity record layout), the overflow count of the stream backend against
-the reference's, the presets' configs field by field, and the options that
-still raise."""
+identity record layout, the bin options, debug_checks), the overflow count
+of the stream backend against the reference's, the presets' configs field
+by field (config7's measured at n0=160), and the option that still raises
+(num_shards)."""
 
 import dataclasses
 import functools
@@ -178,8 +179,10 @@ def test_texture_cap_touches_color_only():
 
 @pytest.mark.parametrize("name", sorted(presets.ALL_PRESETS))
 def test_preset_config_equals_reference_field_by_field(name):
-    """The capacities define the overflow semantics: every field equal."""
-    got = dataclasses.asdict(presets.ALL_PRESETS[name]().config)
+    """The capacities define the overflow semantics: every field equal
+    (config7's are measured, by its dry pass on the CPU here)."""
+    kw = {"device": "cpu"} if name == "config7" else {}
+    got = dataclasses.asdict(presets.ALL_PRESETS[name](**kw).config)
     want = dataclasses.asdict(ref_presets.ALL_PRESETS[name]().config)
     assert set(got) == set(want)
     for k in want:
@@ -296,13 +299,20 @@ def test_layout_axes_render_the_same_frame(axis, value):
 # options of earlier unported-option cases that the port runs now: Phong on
 # the textured terrain (the texture through uv slot 6), with a shadow map,
 # blending with no transparent material, the z early-out flags (they cannot
-# change the frame) and the identity record layout (capacity >= T +
-# clip_budget * 7)
+# change the frame), the identity record layout (capacity >= T +
+# clip_budget * 7), the two bin options, also through the list kernel
+# (the reference's in interpret mode), and debug_checks (its nf_* stats)
 PORTED_OPTIONS = {"blend": {"blend": True}, "mode": {"mode": 3},
                   "shadow_map_size": {"mode": 3, "shadow_map_size": 64},
                   "z_earlyout": {"z_earlyout": True},
                   "z_gates": {"z_earlyout": True, "z_chunk_gate": True, "z_band_gate": True},
-                  "identity_layout": {"clip_expand": 8.0}}
+                  "identity_layout": {"clip_expand": 8.0},
+                  "bin_zorder": {"bin_zorder": True}, "bin_pairs": {"bin_pairs": 2},
+                  "debug_checks": {"debug_checks": True},
+                  "backend-bin_zorder": {"backend": "pallas_smem", "bin_zorder": True,
+                                         "pallas_interpret": True},
+                  "backend-bin_pairs": {"backend": "pallas_smem", "bin_pairs": 2,
+                                        "pallas_interpret": True}}
 
 
 @pytest.mark.parametrize("name", sorted(PORTED_OPTIONS))
@@ -318,6 +328,7 @@ def test_formerly_unported_options_render_the_reference_frame(name):
     ref = rr.readback(rr.step(rscene, rcam))
     assert ((got.depth == 1.0) == (ref.depth == 1.0)).all()
     np.testing.assert_allclose(got.depth, ref.depth, rtol=0, atol=1e-6)
+    assert set(got.stats) == set(ref.stats)
     for k in ref.stats:
         assert int(got.stats[k]) == int(ref.stats[k]), k
     diff = np.abs(got.color.astype(int) - ref.color.astype(int)).max(axis=-1)
@@ -354,10 +365,7 @@ def test_z_chunk_gate_keeps_the_block_size_check():
 
 
 @pytest.mark.parametrize("over", [
-    {"bin_zorder": True}, {"bin_pairs": 2}, {"num_shards": 2}, {"debug_checks": True},
-    # the list kernel's binning refuses the bin options too
-    {"backend": "pallas_smem", "bin_zorder": True},
-    {"backend": "pallas_smem", "bin_pairs": 2},
+    {"num_shards": 2},
     # config5 as its preset sets it: 4 screen bands
     {"num_shards": 4, "z_earlyout": True},
 ], ids=lambda d: "-".join(d))

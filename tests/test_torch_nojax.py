@@ -1,7 +1,8 @@
 """The port stands alone: with jax, flax and xr made unimportable, every
 xr_torch module (the gather tools and the OBJ loader included) imports and
-small config1, config2, config3, config4, config4b, config5 and config6
-frames render on the CPU without launching a kernel."""
+small config1, config2, config3, config4, config4b, config5, config6 and
+config7 (its capacities measured by the port's own dry pass) frames render
+on the CPU without launching a kernel."""
 
 import os
 import subprocess
@@ -23,10 +24,11 @@ for m in pkgutil.walk_packages(xr_torch.__path__, "xr_torch."):
 from xr_torch import Renderer, convert, kernels
 from xr_torch.scene.presets import (config1_cube, config2_icospheres, config3_terrain,
                                     config4_blend, config4_phong, config5_flythrough,
-                                    config6_asset, small_preset)
+                                    config6_asset, config7_terrain_lod, small_preset)
 for preset, cov in ((config3_terrain(48, 48), 0.5), (config1_cube(), 0.1),
                     (config2_icospheres(), 0.1), (config4_phong(), 0.3), (config4_blend(), 0.3),
-                    (config5_flythrough(32, 32), 0.5), (config6_asset(), 0.5)):
+                    (config5_flythrough(32, 32), 0.5), (config6_asset(), 0.5),
+                    (config7_terrain_lod(16, device="cpu"), 0.3)):
     p = small_preset(preset, 64, 48, shadow_map_size=min(preset.config.shadow_map_size, 64),
                      num_shards=1)
     cam, mm = p.animate(0.3)

@@ -7,9 +7,11 @@ matrices, the shadow map's depth-only pass from the light (Phong with
 shading, the blend pass (``blend``) and the u8 resolve — with shapes fixed
 by the config and no host read-back, so frames queue on the device.
 ``readback_frame`` is the Present() replacement: a device-to-host copy that
-raises on any overflow counter. ``PresentMixin.present`` starts that copy
-when the frame is queued (CUDA: pinned host buffers, non-blocking, behind an
-event), so the host's use of frame N-1 overlaps frame N.
+raises on any overflow counter and, under ``debug_checks``, names the first
+pipeline stage whose non-finite counter (``nf_*``) is not zero.
+``PresentMixin.present`` starts that copy when the frame is queued (CUDA:
+pinned host buffers, non-blocking, behind an event), so the host's use of
+frame N-1 overlaps frame N.
 """
 
 from __future__ import annotations
@@ -31,15 +33,40 @@ from xr_torch.shading.deferred import shade_deferred
 
 
 def _check_config(config: RenderConfig) -> None:
-    """Raise on frame-level options the port does not implement yet (the
-    binning raises on its own options, bin_zorder and bin_pairs=2)."""
-    unported = {
-        "debug_checks": config.debug_checks,
-        "num_shards": config.num_shards != 1,
+    """Raise on the option the port does not implement yet: screen bands
+    across devices."""
+    if config.num_shards != 1:
+        raise NotImplementedError("not ported yet: num_shards")
+
+
+def _nf_count(*arrays, mask=None) -> torch.Tensor:
+    """Non-finite elements across the float tensors of arrays, () i32; mask
+    (leading dims) keeps only its rows."""
+    total = None
+    for a in arrays:
+        if a is None or not a.is_floating_point():
+            continue
+        bad = ~torch.isfinite(a)
+        if mask is not None:
+            bad = bad & mask.reshape(mask.shape + (1,) * (bad.ndim - mask.ndim))
+        n = bad.sum(dtype=torch.int32)
+        total = n if total is None else total + n
+    return total
+
+
+def sanitize_stats(scene: Scene, tri, depth, rgb) -> dict:
+    """The nf_* counters of debug_checks (``xr/app/renderer.py:58-78``), in
+    pipeline order: the scene's inputs, the live setup records, the
+    resolved depth and, unless the frame is depth only, the shaded color."""
+    m = scene.mesh
+    out = {
+        "nf_0_input": _nf_count(m.positions, m.normals, m.uvs, scene.model_matrices),
+        "nf_1_geometry": _nf_count(tri.z, tri.inv_w, tri.attr_w, tri.face_rgb, mask=tri.valid),
+        "nf_2_visibility": _nf_count(depth),
     }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if rgb is not None:
+        out["nf_3_shading"] = _nf_count(rgb)
+    return out
 
 
 def camera_matrices(scene: Scene, camera, config: RenderConfig):
@@ -93,9 +120,11 @@ def shadow_pass(scene: Scene, config: RenderConfig, light_view, light_proj, capa
     return {"shadow_depth": shadow_depth, "light_viewproj": m3.matmul(lp, lv)}, bin_of
 
 
-def shade(tri, tid, scene: Scene, config: RenderConfig, eye, shadow: dict):
+def shade(tri, tid, scene: Scene, config: RenderConfig, eye, shadow: dict, shade_hook=None,
+          depth=None):
     """Deferred shading of the visible records: linear rgb (H, W, 3)."""
-    return shade_deferred(tri, tid, scene, config, eye=eye, **shadow)
+    return shade_deferred(tri, tid, scene, config, eye=eye, shade_hook=shade_hook, depth=depth,
+                          **shadow)
 
 
 def blend_pass(rgb, depth, tri, scene: Scene, config: RenderConfig, eye, shadow: dict):
@@ -105,14 +134,18 @@ def blend_pass(rgb, depth, tri, scene: Scene, config: RenderConfig, eye, shadow:
 
 
 def render_step(scene: Scene, camera, config: RenderConfig, light_view=None,
-                light_proj=None, capacity: Optional[int] = None, out=None) -> Frame:
+                light_proj=None, capacity: Optional[int] = None, out=None,
+                shade_hook=None) -> Frame:
     """One frame on the scene's device (``xr/app/renderer.py:95-211``),
     stage by stage: camera_matrices, shadow_pass, depth_pass, shade,
     blend_pass, resolve. camera: a Camera whose leaves are array-likes or
     tensors. light_view, light_proj: the shadow pass's (4, 4) matrices (see
     xr_torch.pipeline.shadow), required for Phong with shadow_map_size > 0.
     out: optional preallocated (color_u8 (H,W,3), depth_f32 (H,W)) pair the
-    frame is written into."""
+    frame is written into. shade_hook: the custom pixel stage,
+    ``hook(color, scene, mat_id, torch[, frag=Frag])`` on the (N, 3) linear
+    color before the background (xr_torch.shading.deferred). Under
+    config.debug_checks the stats gain the nf_* counters."""
     _check_config(config)
     dev = scene.mesh.positions.device
     cap = capacity or clip_capacity(scene.mesh.num_triangles, config)
@@ -133,14 +166,17 @@ def render_step(scene: Scene, camera, config: RenderConfig, light_view=None,
         "fragments_shaded": torch.tensor(shaded, dtype=torch.int32, device=dev),
         "covered_pixels": (depth < 1.0).sum(dtype=torch.int32),
     }
+    rgb = None
     if config.mode == MODE_DEPTH_ONLY:
         color = torch.zeros((config.height, config.width, 3), dtype=torch.uint8, device=dev)
     else:
-        rgb = shade(tri, tid, scene, config, cam.eye, shadow)
+        rgb = shade(tri, tid, scene, config, cam.eye, shadow, shade_hook, depth)
         if config.blend:
             rgb, stats["blend_overflow"] = blend_pass(rgb, depth, tri, scene, config, cam.eye,
                                                       shadow)
         color = sm.resolve_u8(rgb)
+    if config.debug_checks:
+        stats.update(sanitize_stats(scene, tri, depth, rgb))
     if out is not None:
         color = out[0].copy_(color)
         depth = out[1].copy_(depth)
@@ -182,7 +218,8 @@ def start_host_copy(frame: Frame) -> Optional[HostCopy]:
 def readback_frame(frame: Frame, strict: bool = True,
                    copy: Optional[HostCopy] = None) -> Frame:
     """Device-to-host copy. strict: raise if a fixed-capacity stage
-    overflowed and dropped triangles. copy: the frame's copy started
+    overflowed and dropped triangles, or (debug_checks) naming the first
+    stage whose nf_* counter is not zero. copy: the frame's copy started
     earlier (start_host_copy); it is waited for in place of a new,
     synchronous one."""
     if copy is not None:
@@ -200,6 +237,14 @@ def readback_frame(frame: Frame, strict: bool = True,
                 raise RuntimeError(
                     f"{k}={n}: triangles dropped — raise clip_expand/"
                     "bin_capacity in RenderConfig"
+                )
+        # the nf_* keys sort in pipeline order: the first that is not zero
+        # names the stage that produced the non-finite values
+        for k in sorted(out.stats):
+            if k.startswith("nf_") and int(out.stats[k]):
+                raise RuntimeError(
+                    f"debug_checks: {int(out.stats[k])} non-finite values "
+                    f"first appear in the {k.split('_', 2)[2]} stage ({k})"
                 )
     return out
 
@@ -249,22 +294,40 @@ class Renderer(PresentMixin):
     on the host (``xr/app/renderer.py:324-325``); ``step`` takes an
     override. ``step(scene, camera)`` queues a frame; ``readback``/``present``/
     ``flush`` bring it to the host. Output buffers are preallocated and
-    reused: a frame's color/depth tensors go back to the pool once its host
-    copy is taken, and a later step overwrites them — keep the host Frame.
+    reused (recycle_framebuffers): a frame's color/depth tensors go back to
+    the pool once its host copy is taken, and a later step overwrites them
+    — keep the host Frame; with recycle_framebuffers=False every frame gets
+    fresh buffers. shade_hook: the custom pixel stage of every frame (see
+    render_step). autosize_cameras: a Camera, or a list of Cameras or
+    (Camera, model_matrices) pairs, over which every capacity is measured
+    at construction (xr_torch.app.autosize, on this device) times
+    autosize_margin; ``self.config`` is the sized config.
     """
 
-    def __init__(self, scene: Scene, config: RenderConfig, device):
+    def __init__(self, scene: Scene, config: RenderConfig, device, shade_hook=None,
+                 recycle_framebuffers: bool = True, autosize_cameras=None,
+                 autosize_margin: float = 1.5):
+        self.device = torch.device(device)
+        if autosize_cameras is not None:
+            from xr_torch.app.autosize import autosize_config
+
+            if not isinstance(autosize_cameras, list):
+                autosize_cameras = [autosize_cameras]
+            config = autosize_config(scene, autosize_cameras, config, autosize_margin,
+                                     device=self.device)
         _check_config(config)
         self.config = config
-        self.device = torch.device(device)
         self.capacity = clip_capacity(scene.mesh.num_triangles, config)
+        self._hook = shade_hook
+        self._recycle = recycle_framebuffers
         self._inflight = None
         self._copy = None
         self._pool = []
         self._light = light_matrices_for_scene(scene) if has_shadow_pass(config) else None
 
     def _retire(self, frame: Frame) -> None:
-        self._pool.append((frame.color, frame.depth))
+        if self._recycle:
+            self._pool.append((frame.color, frame.depth))
 
     def _out(self, dev):
         if self._pool:
@@ -288,5 +351,6 @@ class Renderer(PresentMixin):
             )
         lv, lp = light_matrices or self._light or (None, None)
         return render_step(scene, camera, self.config, light_view=lv, light_proj=lp,
-                           capacity=self.capacity, out=self._out(dev))
+                           capacity=self.capacity, out=self._out(dev) if self._recycle else None,
+                           shade_hook=self._hook)
 

@@ -40,6 +40,14 @@ def tensor(x, device, dtype=None) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
+def to_numpy(x, dtype=None) -> np.ndarray:
+    """One leaf (an array-like or a tensor on any device) as a host numpy
+    array, of `dtype` when one is given."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype)
+
+
 def _opt(x, device, dtype):
     return None if x is None else tensor(x, device, dtype)
 

@@ -142,10 +142,26 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def fma_matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """m (R, K) times column vectors v (..., K) -> (..., R) as a chain of
+    fused multiply-adds over k = 0..K-1, the order numpy's and XLA's f32
+    matrix products take on the CPU: each f32 product is exact in f64 and
+    each step rounds once to f32 (the f64 sum rounds first, which can
+    differ from one rounding only where it lands on an f32 halfway point)."""
+    m64, v64 = m.double(), v.double()
+    acc = (v64[..., 0:1] * m64[:, 0]).float()
+    for k in range(1, m.shape[-1]):
+        acc = (acc.double() + v64[..., k : k + 1] * m64[:, k]).float()
+    return acc
+
+
 def transform_points(points: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
-    """(N,3) points -> (N,4) through one column-vector 4x4 matrix."""
+    """(N,3) points -> (N,4) through one column-vector 4x4 matrix, as the
+    reference's vertex stage computes it (fma_matvec): a product rounded
+    term by term differs by an ulp at about half the vertices, and at
+    config7's golden that moved a pixel's texture LOD by 2 LSB."""
     n = points.shape[0]
     p4 = torch.cat(
         [points, torch.ones((n, 1), dtype=F32, device=points.device)], dim=1
     )
-    return matvec(matrix, p4)
+    return fma_matvec(matrix, p4)

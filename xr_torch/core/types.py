@@ -51,8 +51,8 @@ class RenderConfig(_Replace):
     ``tex_fetch``, ``tex_split``, ``corner_fetch``, ``mip_math`` and
     ``record_pack`` only change how the reference lays data out for the
     TPU; every value is bit-identical to the default, and the port runs its
-    one path for all of them. Options the port does not implement yet raise
-    ``NotImplementedError`` where they would take effect.
+    one path for all of them. ``num_shards != 1`` (screen bands across
+    devices) is not implemented yet and raises ``NotImplementedError``.
     """
 
     width: int = 512
@@ -97,7 +97,8 @@ class RenderConfig(_Replace):
     mip_math: str = "table"
     record_pack: str = "value"
     # occlusion early-out and its refinements: accepted, they cannot change
-    # the output and the port runs its one fold (bin_zorder: not ported yet)
+    # the output and the port runs its one fold; bin_zorder orders each
+    # tile's bin segment front to back (the same candidates, the same frame)
     z_earlyout: bool = False
     bin_zorder: bool = False
     z_chunk_gate: bool = False
@@ -109,7 +110,8 @@ class RenderConfig(_Replace):
     blend: bool = False
     blend_capacity: int = 128
     blend_chunk: int = 8
-    # non-finite counters per stage (not ported yet)
+    # non-finite counters per stage (nf_* stats; strict readback raises
+    # naming the first stage with one)
     debug_checks: bool = False
     # screen-band sharding across devices (not ported yet)
     num_shards: int = 1

@@ -13,13 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from xr_torch.convert import to_numpy
 from xr_torch.core.types import Scene
-
-
-def _as_np(x, dtype):
-    if hasattr(x, "detach"):  # a torch tensor
-        x = x.detach().cpu().numpy()
-    return np.asarray(x, dtype)
 
 
 def _normalize(v, eps=1e-20):
@@ -76,9 +71,9 @@ def orthographic_np(left, right, bottom, top, near, far) -> np.ndarray:
 def scene_world_bounds(scene: Scene):
     """(center (3,), radius) of the scene in world space (host numpy);
     the scene's leaves may be numpy arrays or tensors on any device."""
-    pos = _as_np(scene.mesh.positions, np.float32)
-    tid = _as_np(scene.mesh.transform_id, np.int32)
-    mats = _as_np(scene.model_matrices, np.float32)
+    pos = to_numpy(scene.mesh.positions, np.float32)
+    tid = to_numpy(scene.mesh.transform_id, np.int32)
+    mats = to_numpy(scene.model_matrices, np.float32)
     p4 = np.concatenate([pos, np.ones((pos.shape[0], 1), np.float32)], axis=1)
     world = np.einsum("vij,vj->vi", mats[tid], p4)[:, :3]
     lo = world.min(axis=0)
@@ -92,7 +87,7 @@ def light_matrices_for_scene(scene: Scene, pad: float = 1.05):
     """Orthographic (view, proj) for directional light 0, fit to the scene:
     the light camera sits at 2 * radius along -light_dir from the scene's
     center and sees the whole bounding sphere. Returns numpy f32 (4, 4)."""
-    d = _as_np(scene.lights.dir_dirs, np.float32)
+    d = to_numpy(scene.lights.dir_dirs, np.float32)
     if d.shape[0] < 1:
         raise ValueError("the shadow pass needs a directional light")
     d = d[0] / max(np.linalg.norm(d[0]), 1e-12)

@@ -2,11 +2,13 @@
 and its helpers in ``xr/raster/jnp_backend.py``).
 
 Each small triangle (bbox within 2x2 tiles) emits 4 (tile, id) key slots,
-duplicates masked to a sentinel tile; medium triangles (bbox within
-medium_span^2 tiles, the first medium_capacity of them) emit one key per
-covered tile; the rest go to a global "large" bucket that every tile
-scans. Keys (tile << idbits | id) are sorted, so each tile's segment of
-``sid`` is contiguous and id-ascending.
+duplicates masked to a sentinel tile (or 2 slots plus a compacted quad row
+under ``bin_pairs=2``); medium triangles (bbox within medium_span^2 tiles,
+the first medium_capacity of them) emit one key per covered tile; the rest
+go to a global "large" bucket that every tile scans. Keys (tile << idbits |
+id) are sorted, so each tile's segment of ``sid`` is contiguous and
+id-ascending; under ``bin_zorder`` it is ordered front to back by quantized
+z_min instead.
 """
 
 from __future__ import annotations
@@ -57,10 +59,11 @@ def untile(a: torch.Tensor, config: RenderConfig) -> torch.Tensor:
 
 
 class BinResult(NamedTuple):
-    """lists (ntiles, bin_capacity) i32: each tile's first bin_capacity ids,
-    ascending, LIST_EMPTY-padded; counts (ntiles,) i32 = min(raw_counts,
-    bin_capacity). sid: (even length,) i32 ids sorted by (tile, id); tile
-    t's segment is sid[starts[t] : starts[t] + raw_counts[t]]. large_ids
+    """lists (ntiles, bin_capacity) i32: each tile's first bin_capacity ids
+    in segment order, LIST_EMPTY-padded; counts (ntiles,) i32 =
+    min(raw_counts, bin_capacity). sid: (even length,) i32 ids sorted by
+    (tile, id), or by (tile, quantized z_min) under bin_zorder; tile t's
+    segment is sid[starts[t] : starts[t] + raw_counts[t]]. large_ids
     (lcap,) i32 ascending, LIST_EMPTY-padded; large_count () i32 (<= lcap).
     dropped () i32 counts entries over bin_capacity plus large-bucket
     overflow, as the reference's lists path reports it; large_dropped ()
@@ -121,11 +124,16 @@ def span_classes(tx0, tx1, ty0, ty1, valid, config: RenderConfig):
 
 def bin_triangles(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> BinResult:
     """Pair emission -> one key sort -> per-tile segments (searchsorted)
-    -> capped per-tile lists (gathers from the sorted ids)."""
-    if config.bin_zorder:
-        raise NotImplementedError("bin_zorder is not ported yet")
-    if config.bin_pairs != 4:
-        raise NotImplementedError("bin_pairs=2 is not ported yet")
+    -> capped per-tile lists (gathers from the sorted ids).
+
+    bin_pairs=2 emits two slots per small triangle (its home tile and, for
+    a span of two tiles, the other; t01 for a 2x2 span) and compacts the
+    2x2-spanning ones into bin_quad_capacity rows carrying (t10, t11); quad
+    overflow goes to the large bucket while its two emitted slots stay
+    live, so a tile's walk may hold an id twice (the resolve does not mind).
+    bin_zorder sorts each segment by quantized z_min instead of by id: the
+    key of a slot is ((tile << zbits) | zq) with the id as payload, sorted
+    stably, so ties keep the emission order of the reference."""
     nty, ntx = grid_dims(config)
     ntiles = ntx * nty
     lcap = config.large_capacity
@@ -140,20 +148,61 @@ def bin_triangles(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> BinRe
         f"sort key overflow: ntiles={ntiles}, capacity={C}"
     )
 
-    # <= 4 (tile, id) pairs per small triangle; sentinel tile ntiles sorts last
+    zorder = config.bin_zorder
+    if zorder:
+        zbits = min(16, 30 - int(ntiles).bit_length())
+        scale = float(2**zbits - 1)
+        # NaN (a non-finite vertex) converts to 0, as XLA converts it
+        zq_c = torch.nan_to_num(torch.clamp(tri.z.amin(1) * scale, 0.0, scale), nan=0.0).to(I32)
+        shift = zbits
+    else:
+        shift = idbits
+
+    def keys_of(ptile, pid, rows):
+        """One emission class as (sort key, id payload), flattened; rows
+        index zq_c for the class's zq (it rides every slot of a row)."""
+        pid = pid.expand(ptile.shape)
+        if not zorder:
+            return ((ptile << idbits) | pid).reshape(-1), None
+        zq = zq_c[rows.long()].reshape(rows.shape + (1,) * (ptile.ndim - 1))
+        return ((ptile << zbits) | zq).reshape(-1), pid.reshape(-1)
+
+    # small triangles: the tiles of a <= 2x2 span; sentinel tile ntiles
+    # sorts last
     sm = valid & small
+    t00 = ty0 * ntx + tx0
+    t01 = ty0 * ntx + tx1
+    t10 = ty1 * ntx + tx0
+    t11 = ty1 * ntx + tx1
     two_x = tx1 > tx0
     two_y = ty1 > ty0
-    pair_tile = torch.stack(
-        [
-            torch.where(sm, ty0 * ntx + tx0, ntiles),
-            torch.where(sm & two_x, ty0 * ntx + tx1, ntiles),
-            torch.where(sm & two_y, ty1 * ntx + tx0, ntiles),
-            torch.where(sm & two_x & two_y, ty1 * ntx + tx1, ntiles),
-        ],
-        dim=1,
-    )
-    keys = [((pair_tile << idbits) | ids[:, None]).reshape(-1)]
+    quad = sm & two_x & two_y
+    if config.bin_pairs == 2:
+        pair_tile = torch.stack(
+            [torch.where(sm, t00, ntiles),
+             torch.where(sm & (two_x | two_y), torch.where(two_x, t01, t10), ntiles)],
+            dim=1,
+        )
+    else:
+        pair_tile = torch.stack(
+            [torch.where(sm, t00, ntiles),
+             torch.where(sm & two_x, t01, ntiles),
+             torch.where(sm & two_y, t10, ntiles),
+             torch.where(quad, t11, ntiles)],
+            dim=1,
+        )
+    parts = [keys_of(pair_tile, ids[:, None], ids)]
+    in_quad = None
+    if config.bin_pairs == 2:
+        # the first bin_quad_capacity 2x2 spans carry (t10, t11)
+        Q = config.bin_quad_capacity
+        qid, _, qtotal = _sort_compact_ids(quad, Q)
+        qlive = torch.arange(Q, device=dev) < torch.clamp_max(qtotal, Q)
+        qrank = torch.cumsum(quad.to(I32), 0, dtype=I32) - 1
+        in_quad = quad & (qrank < Q)  # the rest rides the large bucket
+        q = qid.long()
+        qtile = torch.where(qlive[:, None], torch.stack([t10[q], t11[q]], dim=1), ntiles)
+        parts.append(keys_of(qtile, torch.where(qlive, qid, 0)[:, None], q))
 
     # medium class: the first medium_capacity eligible triangles (id order)
     # emit one pair per covered tile; the rest keep the large-bucket route
@@ -174,15 +223,22 @@ def bin_triangles(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> BinRe
         mmask = oky[:, :, None] & okx[:, None, :] & mlive[:, None, None]
         mtile = torch.where(mmask, tile_y[:, :, None] * ntx + tile_x[:, None, :], ntiles)
         mpid = torch.where(mmask, mid[:, None, None], 0)
-        keys.append(((mtile << idbits) | mpid).reshape(-1))
+        parts.append(keys_of(mtile, mpid, m))
 
-    merged = torch.cat(keys)
+    merged = torch.cat([k for k, _ in parts])
+    payload = torch.cat([p for _, p in parts]) if zorder else None
     if merged.shape[0] % 2:
         # keep the key count even, as the reference does
-        merged = torch.cat([merged, merged.new_full((1,), ntiles << idbits)])
-    skeys = torch.sort(merged).values
-    stile = skeys >> idbits
-    sid = skeys & ((1 << idbits) - 1)
+        merged = torch.cat([merged, merged.new_full((1,), ntiles << shift)])
+        if zorder:
+            payload = torch.cat([payload, payload.new_zeros(1)])
+    if zorder:
+        skeys, order = torch.sort(merged, stable=True)
+        sid = payload[order]
+    else:
+        skeys = torch.sort(merged).values
+        sid = skeys & ((1 << idbits) - 1)
+    stile = skeys >> shift
 
     tgt = torch.arange(ntiles, dtype=I32, device=dev)
     starts = torch.searchsorted(stile, tgt, right=False, out_int32=True)
@@ -194,8 +250,10 @@ def bin_triangles(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> BinRe
     gidx = torch.clamp(starts[:, None] + col[None, :], 0, sid.shape[0] - 1).long()
     lists = torch.where(col[None, :] < counts[:, None], sid[gidx], LIST_EMPTY)
 
-    # global large bucket, ascending ids
+    # global large bucket, ascending ids; bin_pairs=2 adds the quad overflow
     to_large = valid & ~small & ~medium
+    if in_quad is not None:
+        to_large = to_large | (quad & ~in_quad)
     lsorted = torch.sort(torch.where(to_large, ids, LIST_EMPTY)).values
     large_count_raw = to_large.sum(dtype=I32)
     large_count = torch.clamp_max(large_count_raw, lcap)

@@ -2,10 +2,10 @@
 cube), config2 (Gouraud icospheres), config3 (the headline textured
 terrain), config4 (Phong with a shadow map), config4b (config4 with two
 blended panes), config5 (the deep fly-through scene), config6 and
-config6cap (the courtyard loaded from its OBJ, MTL and PNG files) and
-``small_preset``. A preset bundles a host-side numpy Scene,
-``animate(t)`` returning numpy (Camera, model matrices), and the
-RenderConfig; ``xr_torch.convert.scene_to_torch`` moves the scene onto a
+config6cap (the courtyard loaded from its OBJ, MTL and PNG files), config7
+(the LOD terrain with measured capacities) and ``small_preset``. A preset
+bundles a host-side numpy Scene, ``animate(t)`` returning numpy (Camera,
+model matrices), and the RenderConfig; ``xr_torch.convert.scene_to_torch`` moves the scene onto a
 device. The host matrix builders give the bits of the reference's numpy
 ones."""
 
@@ -428,6 +428,56 @@ def config6_capped() -> Preset:
     return Preset("config6cap", p.scene, p.animate, p.config)
 
 
+def config7_terrain_lod(n0: int = 160, rings: int = 3, device="cuda") -> Preset:
+    """Config 7 (``xr/scene/presets.py:454-525``): a fly-through of the
+    chunked LOD terrain (``procedural.terrain_lod``, 177,920 triangles at
+    n0=160, rings=3: clipmap rings that double their cell size outwards,
+    with skirts over the ring seams), textured, 1920x1080, 32x128 tiles,
+    z_earlyout. The camera flies low through the rings, so near-plane
+    clipping and mixed cell sizes meet in one frame; every capacity is
+    measured by ``xr_torch.app.autosize`` over t = 0, 13, 26, 39 with margin
+    1.6, the dry pass running on `device`."""
+    mesh = proc.with_vert_mat(proc.terrain_lod(n0=n0, rings=rings))
+    pyramid = tx.build_pyramid([tx.noise_texture(256, seed=21), tx.checkerboard(256, 8)])
+    scene = Scene(
+        mesh=mesh,
+        materials=Material.table([{"base_color": (0.95, 0.95, 0.9), "tex_id": 0}]),
+        textures=pyramid,
+        lights=Lights.make(
+            dir_dirs=[(-0.35, -0.8, -0.5)],
+            dir_colors=[(1.0, 0.97, 0.9)],
+            ambient=(0.22, 0.22, 0.24),
+        ),
+        model_matrices=_identity_mats(),
+    )
+    world = 30.0 * (2.0**rings)
+
+    def animate(t):
+        tf = np.asarray(t, np.float32)
+        ang = tf * 0.08
+        r = 0.36 * world  # inside the outer ring, crossing ring boundaries
+        eye = np.stack([r * np.cos(ang), 6.5 + 1.5 * np.sin(tf * 0.23), r * np.sin(ang)])
+        tgt = np.stack([0.12 * world * np.cos(ang + 1.1), 1.0 + 0.0 * tf,
+                        0.12 * world * np.sin(ang + 1.1)])
+        cam = Camera(
+            eye=eye.astype(np.float32),
+            target=tgt.astype(np.float32),
+            up=np.asarray((0.0, 1.0, 0.0), np.float32),
+            fov_y=np.asarray(np.deg2rad(62.0), np.float32),
+            near=np.asarray(0.3, np.float32),
+            far=np.asarray(400.0, np.float32),
+        )
+        return cam, _identity_mats()
+
+    from xr_torch.app.autosize import autosize_config
+
+    base = RenderConfig(width=1920, height=1080, mode=MODE_TEXTURED, tile_h=32, tile_w=128,
+                        z_earlyout=True)
+    cams = [animate(t)[0] for t in (0.0, 13.0, 26.0, 39.0)]
+    cfg = autosize_config(scene, cams, base, margin=1.6, device=device)
+    return Preset("config7_terrain_lod", scene, animate, cfg)
+
+
 def small_preset(preset: Preset, width=160, height=120, **overrides) -> Preset:
     """Shrink a preset's framebuffer (tests, goldens)."""
     cfg = dataclasses.replace(preset.config, width=width, height=height, **overrides)
@@ -443,4 +493,5 @@ ALL_PRESETS = {
     "config5": config5_flythrough,
     "config6": config6_asset,
     "config6cap": config6_capped,
+    "config7": config7_terrain_lod,
 }

@@ -8,9 +8,17 @@ exact f32 values (post-clip coords are far below 2^24), in textured mode
 the six per-record texture-LOD derivative terms, then the attributes
 (vertex-major groups of 3) and the 1/w group. Interpolation is perspective
 correct with the reference's product set and add order.
+
+A ``shade_hook`` is the custom pixel stage: every mode's color passes
+through it before the background is applied, called as
+``hook(color (N, 3), scene, mat_id (N,) or None, torch)``, or with a
+``frag=Frag`` keyword when the hook declares ``frag`` (or ``**kwargs``).
 """
 
 from __future__ import annotations
+
+import inspect
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -29,6 +37,27 @@ from xr_torch.core.types import (
 from xr_torch.raster.common import BG_TRI_ID, pixel_grids
 
 F32, I32 = torch.float32, torch.int32
+
+
+class Frag(NamedTuple):
+    """Per-pixel G-buffer a shade_hook with a ``frag`` parameter receives,
+    flat (N,) layout on the frame's device; a field is None where the mode
+    does not produce it."""
+
+    bg: Any  # (N,) bool background mask
+    depth: Optional[Any] = None  # (N,) f32, 1.0 = background
+    uv: Optional[Any] = None  # ((N,), (N,)) perspective-correct u, v
+    world: Optional[Any] = None  # (N, 3) world position (Phong)
+    normal: Optional[Any] = None  # (N, 3) unit world normal (Phong)
+
+
+def _hook_wants_frag(hook) -> bool:
+    try:
+        params = inspect.signature(hook).parameters
+    except (TypeError, ValueError):
+        return False
+    return "frag" in params or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
 
 
 def _sum3(x):
@@ -98,11 +127,14 @@ def _sample_texture(scene, config, u, v, lod6, e0, e1, e2, denom, mat_id):
 
 
 def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig,
-                   eye=None, shadow_depth=None, light_viewproj=None) -> torch.Tensor:
+                   eye=None, shadow_depth=None, light_viewproj=None, shade_hook=None,
+                   depth=None) -> torch.Tensor:
     """Shade a visibility buffer tid (H, W) i32 (BG_TRI_ID = background)
     into (H, W, 3) f32 linear color. Phong takes the camera's eye (3,) and,
     when the frame has a shadow pass, its depth map (Hs, Ws) and the
-    light's view-projection (4, 4)."""
+    light's view-projection (4, 4). shade_hook: the custom pixel stage (see
+    the module doc); depth: the resolved (H, W) depth (1.0 background) its
+    Frag carries."""
     if config.mode == MODE_DEPTH_ONLY:
         raise ValueError("depth-only pass has no shading")
     H, W = tid.shape
@@ -110,8 +142,16 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig,
     bg = tid == BG_TRI_ID
     t = torch.where(bg, 0, tid).long()
     bgc = torch.tensor(config.bg_color, dtype=F32, device=tid.device)
+    wants_frag = shade_hook is not None and _hook_wants_frag(shade_hook)
 
-    def finish(color):
+    def finish(color, mat_id=None, uv=None, world=None, normal=None):
+        if shade_hook is not None:
+            if wants_frag:
+                frag = Frag(bg=bg, depth=None if depth is None else depth.reshape(-1), uv=uv,
+                            world=world, normal=normal)
+                color = shade_hook(color, scene, mat_id, torch, frag=frag)
+            else:
+                color = shade_hook(color, scene, mat_id, torch)
         return torch.where(bg[:, None], bgc, color).reshape(H, W, 3)
 
     if config.mode == MODE_FLAT:
@@ -156,8 +196,9 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig,
         return _sample_texture(scene, config, u, v, lod6, e0, e1, e2, denom, mat_id)
 
     if config.mode == MODE_TEXTURED:
+        u, v = attr(0), attr(1)
         lit = torch.stack([attr(2), attr(3), attr(4)], dim=-1)
-        return finish(texture(attr(0), attr(1)) * lit)
+        return finish(texture(u, v) * lit, mat_id, uv=(u, v))
 
     # Phong (xr/shading/deferred.py:275-314); the reference gathers the
     # material table one channel at a time (a TPU layout choice), a row
@@ -166,7 +207,8 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig,
     normal = m3.normalize(torch.stack([attr(3), attr(4), attr(5)], dim=-1), 1e-12)
     mats = scene.materials
     mid = mat_id.long()
-    base = mats.base_color[mid] * texture(attr(6), attr(7))
+    u, v = attr(6), attr(7)
+    base = mats.base_color[mid] * texture(u, v)
     shadow = None
     if shadow_depth is not None and light_viewproj is not None:
         shadow = sm.shadow_test(shadow_depth, world, light_viewproj, config.shadow_bias)
@@ -174,4 +216,4 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig,
     color = sm.shade_phong(world, normal, eye, base, mats.ka[mid], mats.kd[mid],
                            mats.ks[mid], mats.shininess[mid], scene.lights,
                            shadow_factor=shadow)
-    return finish(color)
+    return finish(color, mat_id, uv=(u, v), world=world, normal=normal)
