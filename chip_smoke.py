@@ -25,15 +25,20 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      fold over 431,358 record slots is compared once and timed by that one
      call if it takes over 5 s); the stream kernel on config7's full frame
      (177,920 triangles, every capacity measured by its dry pass on the
-     card, z_earlyout on) at t = 13 and 26; both kernels on config3 at golden
-     size and in full under bin_zorder, bin_pairs=2 and bin_pairs=2 with a
-     quad budget of 2 (which must send quads to the large bucket), with the
-     depth test and in painter's order, each also bit-exact against the
-     option-free output; times both kernels and their plain versions on the
-     full frames, beside the bound of each launch (the bytes and the integer
-     operations no exact design avoids, _vis_work), and holds the output of
-     the launch after the 50 timed ones against the plain version and
-     against the first launch's
+     card, z_earlyout on) at t = 13 and 26; the stream kernel on config5's
+     full frame in the coordinates of band 0 and band 3 of its preset's four
+     (y_offset 0 and 864 of 1080 rows padded to 1152: the records of the
+     top of the frame lie far above the bottom band's first row), and both
+     kernels on config4's camera pass in band 1 of 2 (y_offset 576), each
+     timed; both kernels on config3 at golden size and in full under
+     bin_zorder, bin_pairs=2 and bin_pairs=2 with a quad budget of 2 (which
+     must send quads to the large bucket), with the depth test and in
+     painter's order, each also bit-exact against the option-free output;
+     times both kernels and their plain versions on the full frames,
+     beside the bound of each launch (the bytes and the integer operations
+     no exact design avoids, _vis_work), and holds the output of the launch
+     after the 50 timed ones against the plain version and against the
+     first launch's
   4. gathers: the lane gather (lane_gather, P1) at the probe's four shapes
      and the 16-channel and one-channel quad gathers (quad_gather P2,
      quad_gather1 P3) at the full 2,073,600-pixel shape, bit-exact against
@@ -45,8 +50,8 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      that computes it (P1, P3; two calls for P2) and its bound
   5. golden: config1 (brute force), config2 (128x128 tiles, stream kernel),
      config3, config4 and config4b (two passes), config5 (a 64x64 terrain,
-     num_shards 1), config6 and config6cap (two passes) and config7 (n0=64,
-     its config sized on the card, which must equal the one sized on the
+     num_shards 1, the golden's own override), config6 and config6cap (two
+     passes) and config7 (n0=64, its config sized on the card, which must equal the one sized on the
      CPU) at golden size through Renderer on the card against tests/goldens/
      (<= 1 LSB; config4/4b/6/6cap at most max(2, 0.1 %) pixels past it, the
      shadow-edge rule of tests/test_goldens.py), coverage within 1e-6
@@ -76,21 +81,37 @@ Phases, each of which raises on failure (exit code != 0, no final line):
        map) at 1920x1080, 30 frames, the stream kernel twice a frame; then
        config6cap (the texture-area cap) on the same cameras: config6's
        depth and stats, other colors at some pixels
+     - config4 (both backends) in two screen bands and config4b in four
+       (xr_torch.dist.shard.ShardedRenderer, every band on this card), 5 of
+       those cameras each: byte-equal to the unbanded frames, the kernel
+       once for the shadow map and once a band
      - config5 (1,003,008 triangles: a 708x708 terrain and 40 boxes) at
-       1920x1080 with num_shards=1, 10 frames at t = 1.0 ... 10.0 of its
-       frozen camera path, the stream kernel once a frame, every overflow
-       counter 0; prints the peak device memory
+       1920x1080 through Renderer, unbanded, 10 frames at t = 1.0 ... 10.0
+       of its frozen camera path, the stream kernel once a frame, every
+       overflow counter 0; then in its preset's four bands through
+       ShardedRenderer on this card on the same cameras: the stream kernel
+       four times a frame, every counter 0, tris_setup, color and depth
+       those of the unbanded frames; prints the peak device memory of
+       each, a stage line of the banded frame (the per-device stages once,
+       the per-band stages summed over the four) and the ms/frame of the
+       two, unbanded and banded in turns
      - config7 (177,920 triangles, the LOD terrain) at 1920x1080, 30 frames
        at t = 1.3 ... 39 of its camera path, the stream kernel once a frame,
        every overflow counter 0; prints tris_setup beside the record
        capacity its dry pass measured and the peak device memory
-     - one config3 frame through present() + flush() (the host copy started
-       when the frame is queued, into pinned memory) against step() +
-       readback(): the same bytes
+     - one config3 frame and one banded config5 frame through present() +
+       flush() (the host copy started when the frame is queued, into pinned
+       memory) against step() + readback(): the same bytes
      - the gather microbenchmarks: xr_torch.tools.probe_lanegather and
        xr_torch.tools.microbench_gather, as run from the command line
      prints ms/frame of each and the device time of each stage, timed on
      the stage functions render_step calls
+  7. entry points, each as a user runs it, in a process of its own:
+     ``python -m xr_torch.examples.run config5 --frames 5`` (the preset's
+     four bands on the card; exit 0, every counter 0 in its done event)
+     and ``python -m xr_torch.tools.profile_frame config3 --frames 8``
+     (its device ms/frame from the torch.profiler trace, its host ms/frame
+     of the same frames and their ratio, the device's busy share)
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -101,6 +122,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -174,8 +196,8 @@ def _preset(name: str, full: bool = False):
     """The presets as published, host side (built once a run); config3's
     terrain is 48x48 quads at golden size and 224x224 (100,352 triangles)
     in full, config5's 64x64 and 708x708 (1,003,008 triangles with its
-    boxes); config5 runs with num_shards=1, the golden's own override;
-    config7's LOD terrain is n0=64 at golden size and n0=160 (177,920
+    boxes) with its preset's num_shards=4 (Renderer ignores it; the golden
+    overrides it to 1); config7's LOD terrain is n0=64 at golden size and n0=160 (177,920
     triangles) in full."""
     from xr_torch.scene import presets
 
@@ -184,8 +206,7 @@ def _preset(name: str, full: bool = False):
         return presets.config3_terrain(n, n)
     if name == "config5":
         n = 708 if full else 64
-        p = presets.config5_flythrough(n, n)
-        return p._replace(config=dataclasses.replace(p.config, num_shards=1))
+        return presets.config5_flythrough(n, n)
     if name == "config7":  # capacities measured by its dry pass on the card
         return presets.config7_terrain_lod(160 if full else 64, device="cuda")
     return presets.ALL_PRESETS[name]()
@@ -321,17 +342,21 @@ def _same_vis(label, what, got, want) -> None:
                 f"{label}: {field} differ from {what} at {int((a != b).sum())} pixels")
 
 
-def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clock_hz=None):
+def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clock_hz=None,
+                    geom_cfg=None, y_offset=0):
     """The kernel and its plain version on the records the frame's
     visibility sees (renderer.visible_triangles: under blend, the opaque
-    ones)."""
+    ones). A screen band: geometry of the full frame (geom_cfg), the
+    kernel on the band's config cfg at y_offset."""
     from xr_torch.app.renderer import visible_triangles
     from xr_torch.pipeline.geometry import clip_capacity
     from xr_torch.tools import timing
 
     prepare, launch, plain = _kernel_fns(kernel)
-    _, tri = visible_triangles(scene, *view_proj, cfg, clip_capacity(scene.mesh.num_triangles, cfg))
-    inp = prepare(tri, cfg)
+    geom_cfg = geom_cfg or cfg
+    _, tri = visible_triangles(scene, *view_proj, geom_cfg,
+                               clip_capacity(scene.mesh.num_triangles, geom_cfg))
+    inp = prepare(tri, cfg, y_offset)
     tk, zk = launch(inp, cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -353,6 +378,10 @@ def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clo
            "dropped": int(inp.dropped), "bg": bg, "max_chunks": int(chunks.max()),
            "one_chunk_tiles": int((chunks == 1).sum()), "vis": (tk, zk)}
     line += f" chunks={int(chunks.sum())} (most in a tile {out['max_chunks']})"
+    if y_offset:
+        by0 = (inp.rec[:, 16] & 0xFFFF) - 32768
+        line += (f"; band at y_offset {y_offset}, records from local y "
+                 f"{int(by0[tri.valid].min())} subpixels")
     if time_it:
         # 50 launches queued behind ~20 ms of spinning: device time
         out["ms"] = timing.device_ms(lambda: launch(inp, cfg), reps=50, warmup=2)[0]
@@ -378,14 +407,17 @@ def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clo
 def phase_kernel_vs_plain(dev, clock_hz) -> dict:
     from xr_torch import convert
     from xr_torch.app.renderer import shadow_config
+    from xr_torch.dist import shard
     from xr_torch.pipeline.shadow import light_matrices_for_scene
 
     errs = {"vis_stream": [], "vis_lists": []}
 
-    def run(kernel, p, cfg_over, scene, cam, name, time_it=False, cfg=None, view_proj=None):
+    def run(kernel, p, cfg_over, scene, cam, name, time_it=False, cfg=None, view_proj=None,
+            geom_cfg=None, y_offset=0):
         cfg = cfg or dataclasses.replace(p.config, **cfg_over)
-        r = _compare_kernel(dev, kernel, cfg, scene, view_proj or _view_proj(dev, cam, cfg),
-                            name, time_it, clock_hz)
+        view_proj = view_proj or _view_proj(dev, cam, geom_cfg or cfg)
+        r = _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it, clock_hz,
+                            geom_cfg, y_offset)
         errs[kernel].append(r["max_abs_err"])
         return r
 
@@ -457,6 +489,14 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
                         view_proj=view_proj)
                 if r["dropped"] or r["bg"] == cfg.width * cfg.height:
                     raise AssertionError(f"{label}: {r}")
+    # config4's camera pass in band 1 of 2: rows 576-1151 of 1152
+    p, cam, scene = _setup(dev, _preset("config4"), 1920, 1080, 0.3)
+    _, hb, band = shard.band_config(p.config, 2)
+    for kernel in ("vis_stream", "vis_lists"):
+        r = run(kernel, p, {}, scene, cam, "config4 camera pass band 1 of 2", time_it=True,
+                cfg=band, geom_cfg=p.config, y_offset=hb)
+        if r["dropped"] or r["bg"] == band.width * band.height:
+            raise AssertionError(f"config4 band 1 of 2: {r}")
 
     # config6: the loaded courtyard's two passes (32x128 tiles, large bucket
     # 4096) through the stream kernel
@@ -478,6 +518,14 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
     for x in (r, r0):
         if x["dropped"] or x["bg"] != r["bg"]:
             raise AssertionError(f"full config5: {x}")
+    # config5's first and last band of its preset's four: y_offset 0 and 864
+    n = p.config.num_shards
+    _, hb, band = shard.band_config(p.config, n)
+    for b in (0, n - 1):
+        r = run("vis_stream", p, {}, scene, cam, f"full config5 band {b} of {n}", time_it=True,
+                cfg=band, geom_cfg=p.config, y_offset=b * hb)
+        if r["dropped"] or r["bg"] == band.width * band.height:
+            raise AssertionError(f"config5 band {b}: {r}")
     del scene
 
     # config7: the LOD terrain's full frame (177,920 triangles) as its
@@ -717,13 +765,15 @@ def _stage_times(dev, p, cam, scene, kernel="vis_stream", reps=10) -> dict:
     return out
 
 
-def _run_frames(dev, scene, cfg, cams, **renderer_kw):
+def _run_frames(dev, scene, cfg, cams, banded=False, **renderer_kw):
     """One warm-up frame, then one frame per camera through Renderer.step +
-    readback, with the launch counts set to 0 just before the timed frames
-    and read just after. Returns (ms per frame, host frames, launches)."""
-    from xr_torch import Renderer, kernels
+    readback (banded: ShardedRenderer's, its config.num_shards bands all on
+    dev), with the launch counts set to 0 just before the timed frames and
+    read just after. Returns (ms per frame, host frames, launches)."""
+    from xr_torch import Renderer, ShardedRenderer, kernels
 
-    r = Renderer(scene, cfg, dev, **renderer_kw)
+    r = (ShardedRenderer(scene, cfg, devices=[dev], **renderer_kw) if banded
+         else Renderer(scene, cfg, dev, **renderer_kw))
     r.readback(r.step(scene, cams[0]))  # warm-up
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -874,7 +924,25 @@ def phase_main_path(dev) -> dict:
     count(launches)
     _log_run("config4b (blend)", p.config, scene.mesh.num_triangles, times, launches)
     _log_stages("config4b t=0.3", _stage_times(dev, p, cams[5], scene))
-    del runs, frames
+
+    # screen bands on the shadow-mapped frames: config4 (both backends) in
+    # two bands, config4b in four, every band on this card; the unbanded
+    # frames of the same cameras above are the reference
+    p4, _, scene4 = _setup(dev, _preset("config4"), 1920, 1080, 0.0)
+    for label, pp, sc, n, backend, want in (
+            ("config4 backend=auto", p4, scene4, 2, "auto", runs["auto"]),
+            ("config4 backend=pallas_smem", p4, scene4, 2, "pallas_smem", runs["pallas_smem"]),
+            ("config4b", p, scene, 4, p.config.backend, frames)):
+        cfg = dataclasses.replace(pp.config, num_shards=n, backend=backend)
+        times, got, launches = _run_frames(dev, sc, cfg, cams[:5], banded=True)
+        kernel = "vis_lists" if backend == "pallas_smem" else "vis_stream"
+        other = "vis_stream" if kernel == "vis_lists" else "vis_lists"
+        if launches[kernel] != (1 + n) * 5 or launches[other]:
+            raise AssertionError(f"{label} in {n} bands: launches {launches} in 5 frames")
+        count(launches)
+        _same_bytes(f"{label} in {n} bands against unbanded", got, want[:5])
+        _log_run(f"{label} in {n} bands", cfg, sc.mesh.num_triangles, times, launches)
+    del runs, frames, got
 
     # config6: the courtyard from its files, Phong with a shadow map, a
     # ragged pyramid with one clamped map; then the texture-area cap on the
@@ -908,7 +976,8 @@ def phase_main_path(dev) -> dict:
         f"changes {min(changed):.4%} to {max(changed):.4%} of the pixels")
     del runs, frames
 
-    # config5: the deep scene along its frozen camera path, one device
+    # config5: the deep scene along its frozen camera path, one device,
+    # unbanded through Renderer (which ignores num_shards)
     p, _, scene = _setup(dev, _preset("config5", full=True), 1920, 1080, 0.0)
     cams = [p.animate(1.0 * (i + 1))[0] for i in range(10)]
     torch.cuda.reset_peak_memory_stats(dev)
@@ -918,13 +987,32 @@ def phase_main_path(dev) -> dict:
         raise AssertionError(f"config5: launches {launches} in {len(cams)} frames")
     _coverage_between(frames, 0.3, 1.0)
     count(launches)
-    _log_run("config5 (num_shards=1, t=1..10)", p.config, scene.mesh.num_triangles, times,
+    _log_run("config5 (unbanded, t=1..10)", p.config, scene.mesh.num_triangles, times,
              launches)
     log("config5 tris_setup by frame: " + ", ".join(str(int(f.stats["tris_setup"])) for f in frames)
         + f"; record capacity {_capacity(scene, p.config)}; peak device memory "
         f"{peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
     _log_stages("config5 t=3.0", _stage_times(dev, p, cams[2], scene))
-    del frames
+
+    # config5 in its preset's four bands on this card: the same cameras, the
+    # same bytes, the stream kernel once a band
+    n = p.config.num_shards
+    if n != 4:
+        raise AssertionError(f"config5's preset must set num_shards=4, not {n}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, got, launches = _run_frames(dev, scene, p.config, cams, banded=True)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches["vis_stream"] != n * len(cams) or launches["vis_lists"]:
+        raise AssertionError(f"config5 in {n} bands: launches {launches} in {len(cams)} frames")
+    count(launches)
+    _same_bytes(f"config5 in {n} bands against unbanded", got, frames)
+    _log_run(f"config5 in {n} bands (ShardedRenderer, one card, t=1..10)", p.config,
+             scene.mesh.num_triangles, times, launches)
+    log(f"config5 in {n} bands: peak device memory {peak / 2**20:.1f} MiB "
+        "(torch.cuda.max_memory_allocated)")
+    _log_stages(f"config5 in {n} bands t=3.0", _banded_stage_times(dev, p, cams[2], scene))
+    _banded_turns(dev, p, scene, cams[:5])
+    del frames, got
 
     # config7: the LOD terrain along its camera path (t = 1.3 ... 39, the
     # span its dry pass sampled), every capacity measured, one device
@@ -946,6 +1034,87 @@ def phase_main_path(dev) -> dict:
     _log_stages("config7 t=13.0", _stage_times(dev, p, p.animate(13.0)[0], scene))
     del frames
     return total
+
+
+def _same_bytes(label, banded, unbanded) -> None:
+    """Raise unless the banded frames hold the unbanded frames' color and
+    depth bytes and tris_setup, with every overflow counter 0 (the banded
+    covered_pixels and fragments_shaded count the padded height)."""
+    for i, (a, b) in enumerate(zip(banded, unbanded)):
+        if a.color.tobytes() != b.color.tobytes() or a.depth.tobytes() != b.depth.tobytes():
+            raise AssertionError(f"{label} frame {i}: the frames differ")
+        if int(a.stats["tris_setup"]) != int(b.stats["tris_setup"]) or any(
+                int(a.stats.get(k, 0)) for k in ("clip_overflow", "bin_overflow",
+                                                 "blend_overflow")):
+            raise AssertionError(f"{label} frame {i}: stats {a.stats} vs {b.stats}")
+    log(f"{label}: the {len(banded)} frames hold the same color and depth bytes and "
+        "tris_setup; every counter 0")
+
+
+def _banded_stage_times(dev, p, cam, scene, reps=10) -> dict:
+    """Device time of each stage of one banded frame, by CUDA events, each
+    the function render_step_sharded calls: the per-device stages once
+    (camera, shadow_pass, geometry), the per-band stages summed over the
+    bands (the stream kernel's prepare and launch, shade, blend_pass,
+    resolve), then the gather of the bands and readback."""
+    from xr_torch.app import renderer
+    from xr_torch.core import shade_math as sm
+    from xr_torch.dist import shard
+    from xr_torch.pipeline.shadow import light_matrices_for_scene
+    from xr_torch.raster import stream
+
+    cfg = p.config
+    cap = _capacity(scene, cfg)
+    n = cfg.num_shards
+    _, hb, band = shard.band_config(cfg, n)
+    out = {"camera": cuda_ms(lambda: renderer.camera_matrices(scene, cam, cfg), reps)}
+    c, view, proj = renderer.camera_matrices(scene, cam, cfg)
+    light, shadow = (None, None), {}
+    if renderer.has_shadow_pass(cfg):
+        light = light_matrices_for_scene(scene)
+        out["shadow_pass"] = cuda_ms(lambda: renderer.shadow_pass(scene, cfg, *light, cap), reps)
+        shadow, _ = renderer.shadow_pass(scene, cfg, *light, cap)
+    out["geometry"] = cuda_ms(lambda: renderer.visible_triangles(scene, view, proj, cfg, cap), reps)
+    tri, vis_tri = renderer.visible_triangles(scene, view, proj, cfg, cap)
+    per_band = dict.fromkeys(["bin+prep", "vis_kernel", "shade"] + ["blend"] * cfg.blend
+                             + ["resolve"], 0.0)
+    colors, depths = [], []
+    for b in range(n):
+        yo = b * hb
+        inp = stream.prepare(vis_tri, band, yo)
+        per_band["bin+prep"] += cuda_ms(lambda: stream.prepare(vis_tri, band, yo), reps)
+        per_band["vis_kernel"] += cuda_ms(lambda: stream.vis_stream(inp, band), reps)
+        tid, zbuf = stream.vis_stream(inp, band)
+        depth = torch.where(torch.isinf(zbuf), 1.0, zbuf)
+        per_band["shade"] += cuda_ms(
+            lambda: renderer.shade(tri, tid, scene, band, c.eye, shadow, None, depth, yo), reps)
+        rgb = renderer.shade(tri, tid, scene, band, c.eye, shadow, None, depth, yo)
+        if cfg.blend:
+            per_band["blend"] += cuda_ms(
+                lambda: renderer.blend_pass(rgb, depth, tri, scene, band, c.eye, shadow, yo), reps)
+        per_band["resolve"] += cuda_ms(lambda: sm.resolve_u8(rgb), reps)
+        colors.append(sm.resolve_u8(rgb))
+        depths.append(depth)
+    out.update({f"{k} ({n} bands)": v for k, v in per_band.items()})
+    out["gather"] = cuda_ms(lambda: (torch.cat(colors)[:cfg.height],
+                                     torch.cat(depths)[:cfg.height]), reps)
+    frame = shard.render_step_sharded(scene, cam, cfg, [dev] * n, *light)
+    out["readback"] = cuda_ms(lambda: renderer.readback_frame(frame), reps)
+    return out
+
+
+def _banded_turns(dev, p, scene, cams, rounds=3) -> None:
+    """config5's ms/frame unbanded (Renderer) and in its bands
+    (ShardedRenderer, one card), in turns, so the host clock's drift falls
+    on both alike."""
+    ms = {"unbanded": [], f"{p.config.num_shards} bands": []}
+    for _ in range(rounds):
+        for label, banded in zip(ms, (False, True)):
+            times, _, _ = _run_frames(dev, scene, p.config, cams, banded=banded)
+            ms[label].append(float(np.mean(times)))
+    log(f"config5 1920x1080 in turns, {rounds} rounds of {len(cams)} frames (step + readback, "
+        "host clock, mean ms/frame of each round): "
+        + "; ".join(f"{k} {v}" for k, v in ms.items()))
 
 
 def _bin_prep_turns(p, cam, scene, options, rounds=5) -> None:
@@ -1052,25 +1221,30 @@ def _capacity(scene, cfg) -> int:
 
 
 def phase_present(dev) -> None:
-    """One config3 frame through present() and flush() against step() and
-    readback(): the host frames hold the same bytes."""
-    from xr_torch import Renderer
+    """One config3 frame, and one config5 frame in its preset's four bands,
+    through present() and flush() against step() and readback(): the host
+    frames hold the same bytes."""
+    from xr_torch import Renderer, ShardedRenderer
 
-    p, cam, scene = _setup(dev, _preset("config3", full=True), 1920, 1080, 0.3)
-    r = Renderer(scene, p.config, dev)
-    want = r.readback(r.step(scene, cam))
-    if r.present(r.step(scene, cam)) is not None:
-        raise AssertionError("present: the first call must return None")
-    got = r.present(r.step(scene, p.animate(0.9)[0]))
-    last = r.flush()
-    same = (got.color.tobytes() == want.color.tobytes()
-            and got.depth.tobytes() == want.depth.tobytes()
-            and set(got.stats) == set(want.stats)
-            and all(got.stats[k].tobytes() == want.stats[k].tobytes() for k in want.stats))
-    if not same or np.array_equal(last.color, want.color) or r.flush() is not None:
-        raise AssertionError("present/flush: the host frame is not readback's")
-    log("present: config3 1920x1080 through present() + flush() holds the bytes of "
-        "step() + readback() (color, depth, stats)")
+    for name, label, t, t2 in (("config3", "config3", 0.3, 0.9),
+                               ("config5", "config5 in 4 bands", 3.0, 6.0)):
+        p, cam, scene = _setup(dev, _preset(name, full=True), 1920, 1080, t)
+        r = (ShardedRenderer(scene, p.config, devices=[dev]) if name == "config5"
+             else Renderer(scene, p.config, dev))
+        want = r.readback(r.step(scene, cam))
+        if r.present(r.step(scene, cam)) is not None:
+            raise AssertionError("present: the first call must return None")
+        got = r.present(r.step(scene, p.animate(t2)[0]))
+        last = r.flush()
+        same = (got.color.tobytes() == want.color.tobytes()
+                and got.depth.tobytes() == want.depth.tobytes()
+                and set(got.stats) == set(want.stats)
+                and all(got.stats[k].tobytes() == want.stats[k].tobytes() for k in want.stats))
+        if not same or np.array_equal(last.color, want.color) or r.flush() is not None:
+            raise AssertionError(f"present/flush {label}: the host frame is not readback's")
+        log(f"present: {label} 1920x1080 through present() + flush() holds the bytes of "
+            "step() + readback() (color, depth, stats)")
+        del scene
 
 
 def _same_frames(label, a_frames, b_frames) -> None:
@@ -1102,6 +1276,46 @@ def phase_gather_tools(dev) -> dict:
     return launches
 
 
+def _entry_point(*args, timeout=600) -> str:
+    """Run ``python -m args`` from the repository root; its stdout. Raises
+    on a nonzero exit."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [ROOT, env.get("PYTHONPATH")]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(f"python -m {' '.join(args)} exited {res.returncode}:\n"
+                             f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    log(f"entry point: python -m {' '.join(args)}: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s (process start and kernel load included)")
+    return res.stdout
+
+
+def phase_entry_points() -> None:
+    """The runner on config5 (its preset's four bands on this card) and the
+    profiler on config3, each as a user runs it."""
+    out = _entry_point("xr_torch.examples.run", "config5", "--frames", "5")
+    events = {e["event"]: e for e in map(json.loads, filter(None, out.splitlines()))}
+    done = events["done"]
+    log(f"run config5: first_frame {events['first_frame']}; done {done}")
+    if done["num_shards"] != 4 or done["frames"] != 5 or any(
+            done["stats"][k] for k in ("clip_overflow", "bin_overflow")):
+        raise AssertionError(f"run config5: {done}")
+
+    prof_dir = os.path.join(ROOT, "build", "profile_frame_config3")
+    out = _entry_point("xr_torch.tools.profile_frame", "config3", "--frames", "8", "--out",
+                       prof_dir)
+    log(out.strip())
+    dev_ms = float(re.search(r"device total: \S+ ms over 8 frames => (\S+) ms/frame",
+                             out).group(1))
+    host_ms = float(re.search(r"host: (\S+) ms/frame", out).group(1))
+    if not dev_ms > 0.0:
+        raise AssertionError("profile_frame config3: no device time in the trace")
+    log(f"profile_frame config3 1920x1080, 8 frames: device {dev_ms!r} ms/frame, host "
+        f"{host_ms!r} ms/frame, device busy share {dev_ms / host_ms!r}")
+
+
 def main() -> int:
     smi, clock_hz = phase_device()
     dev = torch.device("cuda", 0)
@@ -1115,6 +1329,7 @@ def main() -> int:
     phase_present(dev)
     for k, v in phase_gather_tools(dev).items():
         launches[k] += v
+    phase_entry_points()
     for name in KERNELS:
         if not launches[name] or kv[name]["max_abs_err"] != 0.0:
             raise AssertionError(f"{name}: launches {launches[name]}, error {kv[name]}")

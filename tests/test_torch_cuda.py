@@ -13,7 +13,9 @@ measured capacities); both kernels under the bin options (bin_zorder,
 bin_pairs=2 with the quad budget ample and 2), against their plain versions
 and the option-free output, config7's config measured on the card against
 the CPU's, and the app layer on the card (debug_checks with a NaN vertex,
-a shade_hook reading frag.depth, recycle_framebuffers=False). These
+a shade_hook reading frag.depth, recycle_framebuffers=False), both
+kernels on screen bands (y_offset != 0, records above the band's first
+row) and banded frames on the card equal to the unbanded ones. These
 tests need a CUDA device and skip without one. On a machine with a card
 and no JAX, run them without the suite's conftest (which imports JAX):
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``."""
@@ -27,6 +29,7 @@ import torch
 from xr_torch import Renderer, convert, kernels
 from xr_torch.app.renderer import shadow_config
 from xr_torch.core import math3d as m3
+from xr_torch.dist import shard
 from xr_torch.pipeline.geometry import geometry
 from xr_torch.pipeline.shadow import light_matrices_for_scene
 from xr_torch.raster import smem, stream
@@ -446,3 +449,48 @@ def test_app_layer_on_the_card(cuda):
         a, b = fresh.readback(fresh.step(scene, c)), plain.readback(plain.step(scene, c))
         assert np.array_equal(a.color, b.color) and np.array_equal(a.depth, b.depth)
     assert not fresh._pool
+
+
+@pytest.mark.parametrize("kernel", sorted(MATCHES_PLAIN))
+def test_kernels_on_bands_with_y_offset(cuda, kernel):
+    """Bands 1 and 3 of four of config3 at 192x108 (padded to 128 rows,
+    bands of 32): the full frame's records in band coordinates, many above
+    the band's first row (negative local ys), bit-exact against the plain
+    version."""
+    p, cam, scene = _scene(cuda)
+    _, hb, band = shard.band_config(dataclasses.replace(p.config, num_shards=4), 4)
+    tri = _tri(cuda, p, cam, scene, p.config)
+    prepare, launch, plain = {
+        "vis_stream": (stream.prepare, stream.vis_stream, stream.vis_stream_plain),
+        "vis_lists": (smem.prepare_lists, smem.vis_lists, smem.vis_lists_plain)}[kernel]
+    for b in (1, 3):
+        inp = prepare(tri, band, b * hb)
+        by0 = (inp.rec[:, 16] & 0xFFFF) - 32768
+        assert int(by0[tri.valid].min()) < 0
+        out = launch(inp, band)
+        _same(out, plain(inp, band))
+        assert bool((out[0] != 2**31 - 1).any())
+
+
+@pytest.mark.parametrize("name", ["config4b", "config5"])
+def test_banded_frame_on_the_card_equals_unbanded(cuda, name):
+    """config4b (shadow map, blend) and config5 at golden size in four
+    bands on one card: B1 once a band (and once for the shadow map), the
+    frame byte-equal to the unbanded one."""
+    if name == "config5":
+        preset, size, over = presets.config5_flythrough(64, 64), (192, 108), {}
+    else:
+        preset, size, over = presets.config4_blend(), (160, 100), {"shadow_map_size": 128}
+    p = presets.small_preset(preset, *size, bin_capacity=8192, num_shards=4, **over)
+    cam, mm = p.animate(1.0)
+    scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), cuda)
+    s = shard.ShardedRenderer(scene, p.config, devices=[cuda])
+    kernels.reset_launches()
+    banded = s.readback(s.step(scene, cam))
+    assert kernels.launches["vis_stream"] == 4 + (name == "config4b")
+    r = Renderer(scene, p.config, cuda)
+    single = r.readback(r.step(scene, cam))
+    assert banded.color.tobytes() == single.color.tobytes()
+    assert banded.depth.tobytes() == single.depth.tobytes()
+    for k in ("tris_setup", "clip_overflow", "bin_overflow"):
+        assert int(banded.stats[k]) == int(single.stats[k]), k

@@ -7,10 +7,10 @@ config6 and config6cap by the shadow-edge rules of tests/test_goldens.py
 and tests/test_torch_phong.py. Also the Renderer's buffers and present
 queue, the layout axes, the options ported since the first slice (Phong,
 shadows and blending on the small terrain, the z early-out flags, the
-identity record layout, the bin options, debug_checks), the overflow count
-of the stream backend against the reference's, the presets' configs field
-by field (config7's measured at n0=160), and the option that still raises
-(num_shards)."""
+identity record layout, the bin options, debug_checks, num_shards, which
+Renderer ignores as the reference's does), the overflow count of the stream
+backend against the reference's, and the presets' configs field by field
+(config7's measured at n0=160)."""
 
 import dataclasses
 import functools
@@ -301,8 +301,12 @@ def test_layout_axes_render_the_same_frame(axis, value):
 # blending with no transparent material, the z early-out flags (they cannot
 # change the frame), the identity record layout (capacity >= T +
 # clip_budget * 7), the two bin options, also through the list kernel
-# (the reference's in interpret mode), and debug_checks (its nf_* stats)
-PORTED_OPTIONS = {"blend": {"blend": True}, "mode": {"mode": 3},
+# (the reference's in interpret mode), debug_checks (its nf_* stats), and
+# num_shards, which both Renderers ignore (config5's preset sets 4 bands
+# and z_earlyout; the bands are ShardedRenderer's, tests/test_torch_shard.py)
+PORTED_OPTIONS = {"num_shards=2": {"num_shards": 2},
+                  "num_shards=4": {"num_shards": 4, "z_earlyout": True},
+                  "blend": {"blend": True}, "mode": {"mode": 3},
                   "shadow_map_size": {"mode": 3, "shadow_map_size": 64},
                   "z_earlyout": {"z_earlyout": True},
                   "z_gates": {"z_earlyout": True, "z_chunk_gate": True, "z_band_gate": True},
@@ -362,15 +366,3 @@ def test_z_chunk_gate_keeps_the_block_size_check():
                            stream_block=100)
     with pytest.raises(AssertionError, match="CHUNK_G"):
         Renderer(scene, p.config, "cpu").step(scene, cam)
-
-
-@pytest.mark.parametrize("over", [
-    {"num_shards": 2},
-    # config5 as its preset sets it: 4 screen bands
-    {"num_shards": 4, "z_earlyout": True},
-], ids=lambda d: "-".join(d))
-def test_unported_options_raise(over):
-    p, cam, scene = _small(**over)
-    with pytest.raises(NotImplementedError):
-        r = Renderer(scene, p.config, "cpu")
-        r.step(scene, cam)

@@ -1,8 +1,9 @@
 """The port stands alone: with jax, flax and xr made unimportable, every
-xr_torch module (the gather tools and the OBJ loader included) imports and
-small config1, config2, config3, config4, config4b, config5, config6 and
-config7 (its capacities measured by the port's own dry pass) frames render
-on the CPU without launching a kernel."""
+xr_torch module (the gather tools, the OBJ loader, the screen bands, scene
+files, the profiler and the entry points included) imports and small
+config1, config2, config3, config4, config4b, config5, config6 and config7
+(its capacities measured by the port's own dry pass) frames render on the
+CPU without launching a kernel, config5 also in its preset's four bands."""
 
 import os
 import subprocess
@@ -21,7 +22,11 @@ torch.set_num_threads(1)
 import xr_torch
 for m in pkgutil.walk_packages(xr_torch.__path__, "xr_torch."):
     importlib.import_module(m.name)
-from xr_torch import Renderer, convert, kernels
+from xr_torch import Renderer, ShardedRenderer, convert, kernels, prof
+from xr_torch.core import serialize
+from xr_torch.dist import shard
+from xr_torch.examples import run, watch
+from xr_torch.tools import profile_frame
 from xr_torch.scene.presets import (config1_cube, config2_icospheres, config3_terrain,
                                     config4_blend, config4_phong, config5_flythrough,
                                     config6_asset, config7_terrain_lod, small_preset)
@@ -29,8 +34,7 @@ for preset, cov in ((config3_terrain(48, 48), 0.5), (config1_cube(), 0.1),
                     (config2_icospheres(), 0.1), (config4_phong(), 0.3), (config4_blend(), 0.3),
                     (config5_flythrough(32, 32), 0.5), (config6_asset(), 0.5),
                     (config7_terrain_lod(16, device="cpu"), 0.3)):
-    p = small_preset(preset, 64, 48, shadow_map_size=min(preset.config.shadow_map_size, 64),
-                     num_shards=1)
+    p = small_preset(preset, 64, 48, shadow_map_size=min(preset.config.shadow_map_size, 64))
     cam, mm = p.animate(0.3)
     scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), "cpu")
     r = Renderer(scene, p.config, "cpu")
@@ -38,6 +42,10 @@ for preset, cov in ((config3_terrain(48, 48), 0.5), (config1_cube(), 0.1),
     assert f.color.shape == (48, 64, 3) and f.color.dtype == np.uint8
     assert np.isfinite(f.depth).all() and (f.depth < 1.0).mean() > cov, p.name
     assert f.color.max() > 0
+    if p.config.num_shards > 1:
+        s = ShardedRenderer(scene, p.config, devices=["cpu"])
+        g = s.readback(s.step(scene, cam))
+        assert len(s.mesh) == 4 and g.color.tobytes() == f.color.tobytes()
 assert not any(kernels.launches.values())
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "xr.")) for k, v in sys.modules.items() if v is not None)
 print("OK")

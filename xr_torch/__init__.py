@@ -31,10 +31,11 @@ from xr_torch.core.types import (  # noqa: E402,F401
 )
 from xr_torch.app.renderer import Renderer, readback_frame, render_step  # noqa: E402,F401
 from xr_torch.convert import scene_to_torch  # noqa: E402,F401
+from xr_torch.dist.shard import ShardedRenderer  # noqa: E402,F401
 
 __all__ = [
     "MODE_FLAT", "MODE_GOURAUD", "MODE_TEXTURED", "MODE_PHONG",
     "MODE_DEPTH_ONLY", "RenderConfig", "Mesh", "Camera", "Lights",
-    "Material", "Scene", "Frame", "Renderer", "render_step",
+    "Material", "Scene", "Frame", "Renderer", "ShardedRenderer", "render_step",
     "readback_frame", "scene_to_torch",
 ]

@@ -32,13 +32,6 @@ from xr_torch.shading import blend
 from xr_torch.shading.deferred import shade_deferred
 
 
-def _check_config(config: RenderConfig) -> None:
-    """Raise on the option the port does not implement yet: screen bands
-    across devices."""
-    if config.num_shards != 1:
-        raise NotImplementedError("not ported yet: num_shards")
-
-
 def _nf_count(*arrays, mask=None) -> torch.Tensor:
     """Non-finite elements across the float tensors of arrays, () i32; mask
     (leading dims) keeps only its rows."""
@@ -121,24 +114,28 @@ def shadow_pass(scene: Scene, config: RenderConfig, light_view, light_proj, capa
 
 
 def shade(tri, tid, scene: Scene, config: RenderConfig, eye, shadow: dict, shade_hook=None,
-          depth=None):
-    """Deferred shading of the visible records: linear rgb (H, W, 3)."""
+          depth=None, y_offset: int = 0):
+    """Deferred shading of the visible records: linear rgb (H, W, 3), the
+    rows [y_offset, y_offset + H) of the frame."""
     return shade_deferred(tri, tid, scene, config, eye=eye, shade_hook=shade_hook, depth=depth,
-                          **shadow)
+                          y_offset=y_offset, **shadow)
 
 
-def blend_pass(rgb, depth, tri, scene: Scene, config: RenderConfig, eye, shadow: dict):
-    """The transparent records composited over the shaded frame:
-    (rgb, blend_overflow)."""
-    return blend.composite_transparent(rgb, depth, tri, scene, config, eye, **shadow)
+def blend_pass(rgb, depth, tri, scene: Scene, config: RenderConfig, eye, shadow: dict,
+               y_offset: int = 0):
+    """The transparent records composited over the shaded frame (or band
+    of rows from y_offset): (rgb, blend_overflow)."""
+    return blend.composite_transparent(rgb, depth, tri, scene, config, eye, y_offset=y_offset,
+                                       **shadow)
 
 
 def render_step(scene: Scene, camera, config: RenderConfig, light_view=None,
                 light_proj=None, capacity: Optional[int] = None, out=None,
                 shade_hook=None) -> Frame:
-    """One frame on the scene's device (``xr/app/renderer.py:95-211``),
-    stage by stage: camera_matrices, shadow_pass, depth_pass, shade,
-    blend_pass, resolve. camera: a Camera whose leaves are array-likes or
+    """One frame on the scene's device (``xr/app/renderer.py:95-211``);
+    like the reference's, it ignores config.num_shards (screen bands are
+    xr_torch.dist.shard's). Stage by stage: camera_matrices, shadow_pass,
+    depth_pass, shade, blend_pass, resolve. camera: a Camera whose leaves are array-likes or
     tensors. light_view, light_proj: the shadow pass's (4, 4) matrices (see
     xr_torch.pipeline.shadow), required for Phong with shadow_map_size > 0.
     out: optional preallocated (color_u8 (H,W,3), depth_f32 (H,W)) pair the
@@ -146,7 +143,6 @@ def render_step(scene: Scene, camera, config: RenderConfig, light_view=None,
     ``hook(color, scene, mat_id, torch[, frag=Frag])`` on the (N, 3) linear
     color before the background (xr_torch.shading.deferred). Under
     config.debug_checks the stats gain the nf_* counters."""
-    _check_config(config)
     dev = scene.mesh.positions.device
     cap = capacity or clip_capacity(scene.mesh.num_triangles, config)
     cam, view, proj = camera_matrices(scene, camera, config)
@@ -287,7 +283,34 @@ class PresentMixin:
             self._retire(frame)
 
 
-class Renderer(PresentMixin):
+class FramebufferPool(PresentMixin):
+    """Output buffers of ``self.config``'s size, reused across frames
+    (recycle_framebuffers): a frame's color/depth go back to the pool once
+    its host copy is taken, and a later step overwrites them."""
+
+    config: RenderConfig
+    _recycle: bool = True
+    _pool: list
+
+    def _retire(self, frame: Frame) -> None:
+        if self._recycle:
+            self._pool.append((frame.color, frame.depth))
+
+    def _out(self, dev):
+        """A (color, depth) pair to write the next frame into, or None
+        without recycling."""
+        if not self._recycle:
+            return None
+        if self._pool:
+            return self._pool.pop()
+        cfg = self.config
+        return (
+            torch.empty((cfg.height, cfg.width, 3), dtype=torch.uint8, device=dev),
+            torch.empty((cfg.height, cfg.width), dtype=torch.float32, device=dev),
+        )
+
+
+class Renderer(FramebufferPool):
     """Renders frames of one scene and config on an explicit device.
 
     The shadow pass's light matrices are fit to the scene given here, once,
@@ -315,7 +338,6 @@ class Renderer(PresentMixin):
                 autosize_cameras = [autosize_cameras]
             config = autosize_config(scene, autosize_cameras, config, autosize_margin,
                                      device=self.device)
-        _check_config(config)
         self.config = config
         self.capacity = clip_capacity(scene.mesh.num_triangles, config)
         self._hook = shade_hook
@@ -324,19 +346,6 @@ class Renderer(PresentMixin):
         self._copy = None
         self._pool = []
         self._light = light_matrices_for_scene(scene) if has_shadow_pass(config) else None
-
-    def _retire(self, frame: Frame) -> None:
-        if self._recycle:
-            self._pool.append((frame.color, frame.depth))
-
-    def _out(self, dev):
-        if self._pool:
-            return self._pool.pop()
-        cfg = self.config
-        return (
-            torch.empty((cfg.height, cfg.width, 3), dtype=torch.uint8, device=dev),
-            torch.empty((cfg.height, cfg.width), dtype=torch.float32, device=dev),
-        )
 
     def step(self, scene: Scene, camera, light_matrices=None) -> Frame:
         """Render one frame. scene: tensors on this renderer's device (see
@@ -351,6 +360,6 @@ class Renderer(PresentMixin):
             )
         lv, lp = light_matrices or self._light or (None, None)
         return render_step(scene, camera, self.config, light_view=lv, light_proj=lp,
-                           capacity=self.capacity, out=self._out(dev) if self._recycle else None,
+                           capacity=self.capacity, out=self._out(dev),
                            shade_hook=self._hook)
 

@@ -51,8 +51,8 @@ class RenderConfig(_Replace):
     ``tex_fetch``, ``tex_split``, ``corner_fetch``, ``mip_math`` and
     ``record_pack`` only change how the reference lays data out for the
     TPU; every value is bit-identical to the default, and the port runs its
-    one path for all of them. ``num_shards != 1`` (screen bands across
-    devices) is not implemented yet and raises ``NotImplementedError``.
+    one path for all of them. ``num_shards`` is the number of screen bands
+    ``xr_torch.dist.shard.ShardedRenderer`` renders; ``Renderer`` ignores it.
     """
 
     width: int = 512
@@ -113,7 +113,7 @@ class RenderConfig(_Replace):
     # non-finite counters per stage (nf_* stats; strict readback raises
     # naming the first stage with one)
     debug_checks: bool = False
-    # screen-band sharding across devices (not ported yet)
+    # screen bands (xr_torch.dist.shard)
     num_shards: int = 1
     bg_color: Tuple[float, float, float] = (0.0, 0.0, 0.0)
 

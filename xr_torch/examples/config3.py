@@ -1,0 +1,9 @@
+"""Config 3: `python -m xr_torch.examples.config3 [run.py's flags]`, a thin
+wrapper over xr_torch.examples.run."""
+import sys
+
+from xr_torch.examples.run import main
+
+if __name__ == "__main__":
+    sys.argv.insert(1, "config3")
+    main()

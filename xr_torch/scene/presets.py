@@ -295,8 +295,8 @@ def config5_flythrough(nx: int = 708, nz: int = 708) -> Preset:
     """Config 5 (``xr/scene/presets.py:292-370``): a fly-through of a deep
     scene, a textured 2*nx*nz-triangle terrain (1,002,528 at the default
     708x708) with 40 scaled boxes on it for occlusion; 1920x1080, 32x128
-    tiles. The reference shards it over 4 screen bands (num_shards=4);
-    the port renders it with num_shards=1 until bands are ported."""
+    tiles, in 4 screen bands (num_shards=4) through
+    ``xr_torch.dist.shard.ShardedRenderer``, as the reference shards it."""
     terrain = proc.terrain(nx, nz, size=120.0, height=7.0, octaves=6, seed=13)
     rng = np.random.default_rng(5)
     objs = [terrain]

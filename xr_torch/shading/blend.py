@@ -67,11 +67,13 @@ def _src_ordered_ids(tri, tmask, cap: int):
 
 
 def composite_transparent(color, depth, tri, scene: Scene, config: RenderConfig, eye,
-                          shadow_depth=None, light_viewproj=None):
+                          shadow_depth=None, light_viewproj=None, y_offset: int = 0):
     """Composite the transparent records over the shaded frame.
 
     color (H, W, 3) f32 linear, background included; depth (H, W) f32
-    opaque depth (1.0 = background). Returns (color, overflow () i32): the
+    opaque depth (1.0 = background); both hold rows [y_offset, y_offset +
+    H) of the full frame (a screen band walks the whole transparent list
+    against its own rows). Returns (color, overflow () i32): the
     transparent records past blend_capacity, which strict readback raises
     on."""
     H, W = depth.shape
@@ -87,6 +89,7 @@ def composite_transparent(color, depth, tri, scene: Scene, config: RenderConfig,
         return color, overflow
 
     px, py = rc.pixel_grids(W, H, config.subpixel, dev)
+    py = py + y_offset * config.subpixel
     slot_valid = torch.arange(nchunks * ch, device=dev) < torch.clamp_max(total, cap)
     ids = torch.cat([ids, ids.new_zeros(nchunks * ch - cap)]).long()
     eye = torch.as_tensor(eye, dtype=F32, device=dev)

@@ -128,13 +128,14 @@ def _sample_texture(scene, config, u, v, lod6, e0, e1, e2, denom, mat_id):
 
 def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig,
                    eye=None, shadow_depth=None, light_viewproj=None, shade_hook=None,
-                   depth=None) -> torch.Tensor:
+                   depth=None, y_offset: int = 0) -> torch.Tensor:
     """Shade a visibility buffer tid (H, W) i32 (BG_TRI_ID = background)
     into (H, W, 3) f32 linear color. Phong takes the camera's eye (3,) and,
     when the frame has a shadow pass, its depth map (Hs, Ws) and the
     light's view-projection (4, 4). shade_hook: the custom pixel stage (see
     the module doc); depth: the resolved (H, W) depth (1.0 background) its
-    Frag carries."""
+    Frag carries. y_offset: tid holds rows [y_offset, y_offset + H) of the
+    full frame (a screen band); every pixel position is taken there."""
     if config.mode == MODE_DEPTH_ONLY:
         raise ValueError("depth-only pass has no shading")
     H, W = tid.shape
@@ -159,7 +160,7 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig,
 
     px, py = pixel_grids(W, H, config.subpixel, tid.device)
     px = px.reshape(-1)
-    py = py.reshape(-1)
+    py = py.reshape(-1) + y_offset * config.subpixel
     A = config.attr_width
     pyr = scene.textures
     uv_slot = None
