@@ -7,6 +7,10 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      and reads the SM clock the integer bound is taken at
   2. build: compiles the CUDA kernels from xr_torch/csrc/ (nvcc, one process
      per source, started together)
+     native: the host codec (xr_torch/native, g++ into build/) must build;
+     the courtyard's OBJ parsed natively and by Python gives equal arrays,
+     a 1920x1080 PNG written natively and by Python decodes to the same
+     bytes; each one's seconds
   3. kernel vs plain: each visibility kernel against its plain PyTorch
      version on identical inputs, bit-exact tid and z and equal dropped:
      the stream kernel (vis_stream) on config3 at golden size in four cases,
@@ -75,7 +79,10 @@ Phases, each of which raises on failure (exit code != 0, no final line):
        cameras with "pallas_smem" (the list kernel twice a frame):
        identical color, depth and stats
      - config4b (config4 with two blended panes) at 1920x1080, 30 frames on
-       config4's cameras: no blend overflow, config4's depth, other colors
+       config4's cameras: no blend overflow, config4's depth, other colors;
+       the blend stage's device time beside that of the composite that
+       ran all its chunks (127.686 ms, another call; PERF.md), and the
+       chunks the composite runs in each frame (ceil(n_live / blend_chunk))
      - config6 (the courtyard loaded from its OBJ, MTL and PNG files, Phong
        with a 1024x1024 shadow map, a ragged texture pyramid, one clamped
        map) at 1920x1080, 30 frames, the stream kernel twice a frame; then
@@ -106,12 +113,28 @@ Phases, each of which raises on failure (exit code != 0, no final line):
        xr_torch.tools.microbench_gather, as run from the command line
      prints ms/frame of each and the device time of each stage, timed on
      the stage functions render_step calls
+     oracle: one frame of each of config1 (512x512), config2 (pallas_smem:
+     the list kernel), config3, config4, config4b, config6, config7 and
+     config5 (unbanded, and in its preset's four bands) at 1920x1080,
+     rendered on the card through Renderer.step + readback (B1, or B2 for
+     config2) and by the port's CPU oracle (xr_torch.cpu_ref, no binning,
+     records or kernel), at the t of the path's first frame above; held to
+     the device-vs-oracle rule (tests/test_tpu_device_frames.py:51-86):
+     coverage and stats equal, color within 1 LSB outside the oracle's
+     shadow-flip risk set (at most npix / 1000 pixels, npix / 500 on
+     config6 as the reference's config6 device test allows, none past 180
+     LSB), depth within 1e-6 but at 0.1 % of the pixels and within 1e-5
+     there; prints the oracle's seconds and the CPU's name
   7. entry points, each as a user runs it, in a process of its own:
      ``python -m xr_torch.examples.run config5 --frames 5`` (the preset's
      four bands on the card; exit 0, every counter 0 in its done event)
      and ``python -m xr_torch.tools.profile_frame config3 --frames 8``
      (its device ms/frame from the torch.profiler trace, its host ms/frame
-     of the same frames and their ratio, the device's busy share)
+     of the same frames and their ratio, the device's busy share);
+     ``python -m xr_torch.examples.run config1 --oracle --frames 2`` (exit
+     0, a done event on the CPU) and ``python -m
+     xr_torch.tools.regen_goldens build/goldens`` (every golden within
+     1 LSB of tests/goldens, the shadow-edge rule for config4/4b/6/6cap)
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -122,6 +145,7 @@ import dataclasses
 import functools
 import json
 import os
+import platform
 import re
 import subprocess
 import sys
@@ -266,6 +290,49 @@ def phase_build() -> None:
     kernels.library()
     log(f"build: {path.name} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 0.0:.2f} s)")
+
+
+def phase_native() -> None:
+    """The native host codec (xr_torch.native): its g++ build must succeed
+    here (a library user falls back to Python; this run does not), the
+    courtyard's OBJ parses natively to the Python parser's arrays, and a
+    1920x1080 PNG written natively decodes to the bytes the Python encoder
+    writes."""
+    from xr_torch.core import image
+    from xr_torch.native import api
+    from xr_torch.scene import objio
+
+    t0 = time.perf_counter()
+    if not api.available():
+        raise AssertionError(f"native: g++ could not build {api.SRC} (zlib needed)")
+    log(f"native: {api.LIB.name} built and loaded in {time.perf_counter() - t0:.2f} s")
+    path = os.path.join(ROOT, "assets", "courtyard", "courtyard.obj")
+    t0 = time.perf_counter()
+    nat = api.parse_obj(path)
+    t_nat = time.perf_counter() - t0
+    py = objio._python_parse(path)
+    t_py = time.perf_counter() - t0 - t_nat
+    keys = ("positions", "normals", "uvs", "indices", "face_mat")
+    if nat["materials"] != py["materials"] or not all(
+            nat[k].dtype == py[k].dtype and np.array_equal(nat[k], py[k]) for k in keys):
+        raise AssertionError("native: the courtyard's native parse differs from Python's")
+    log(f"native: courtyard.obj ({nat['indices'].shape[0]} triangles) parsed natively in "
+        f"{t_nat:.3f} s, by Python in {t_py:.3f} s: equal arrays")
+    img = np.random.default_rng(0).integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+    out = os.path.join(ROOT, "build", "chip_smoke_native")
+    os.makedirs(out, exist_ok=True)
+    a, b = os.path.join(out, "native.png"), os.path.join(out, "python.png")
+    t0 = time.perf_counter()
+    if not api.write_png(a, img):
+        raise AssertionError("native: write_png failed")
+    t_nat = time.perf_counter() - t0
+    image._write_png_python(b, img)
+    t_py = time.perf_counter() - t0 - t_nat
+    da, db = image.read_png(a), image.read_png(b)
+    if not (np.array_equal(da, db) and np.array_equal(da, img)):
+        raise AssertionError("native: the native PNG does not decode to the Python PNG's bytes")
+    log(f"native: a 1920x1080 PNG written natively in {t_nat:.3f} s, by Python in "
+        f"{t_py:.3f} s: both decode to the same bytes")
 
 
 def _setup(dev, preset, width, height, t, **over):
@@ -923,7 +990,11 @@ def phase_main_path(dev) -> dict:
             raise AssertionError(f"config4b frame {i}: the panes tint under 1 % of the pixels")
     count(launches)
     _log_run("config4b (blend)", p.config, scene.mesh.num_triangles, times, launches)
-    _log_stages("config4b t=0.3", _stage_times(dev, p, cams[5], scene))
+    stages = _stage_times(dev, p, cams[5], scene)
+    _log_stages("config4b t=0.3", stages)
+    log(f"config4b blend stage: {stages['blend']:.3f} ms device time at t=0.3 (the composite "
+        "that ran all its chunks: 127.686 ms, in another call); chunks run per frame "
+        f"{_blend_chunks(p, scene, cams)} of {-(-p.config.blend_capacity // p.config.blend_chunk)}")
 
     # screen bands on the shadow-mapped frames: config4 (both backends) in
     # two bands, config4b in four, every band on this card; the unbanded
@@ -1034,6 +1105,23 @@ def phase_main_path(dev) -> dict:
     _log_stages("config7 t=13.0", _stage_times(dev, p, p.animate(13.0)[0], scene))
     del frames
     return total
+
+
+def _blend_chunks(p, scene, cams) -> list:
+    """The chunks the blend composite runs in each camera's frame:
+    ceil(n_live / blend_chunk), n_live read as the composite reads it
+    (xr_torch.shading.blend.live_records)."""
+    from xr_torch.app import renderer
+    from xr_torch.shading import blend
+
+    cfg, out = p.config, []
+    cap = _capacity(scene, cfg)
+    for cam in cams:
+        _, view, proj = renderer.camera_matrices(scene, cam, cfg)
+        tri, _ = renderer.visible_triangles(scene, view, proj, cfg, cap)
+        out.append(-(-blend.live_records(tri, scene, cfg) // min(cfg.blend_chunk,
+                                                                 cfg.blend_capacity)))
+    return out
 
 
 def _same_bytes(label, banded, unbanded) -> None:
@@ -1276,6 +1364,129 @@ def phase_gather_tools(dev) -> dict:
     return launches
 
 
+# the oracle phase's frames: (label, preset, full size, width, height, the t
+# of the path's first frame in phase 6, backend, bands, the kernel and its
+# launches a frame); config5's two frames share one oracle frame
+ORACLE_PATHS = (
+    ("config1", "config1", False, 512, 512, 0.1, None, 1, None, 0),
+    ("config2 pallas_smem", "config2", False, 1920, 1080, 0.05, "pallas_smem", 1, "vis_lists", 1),
+    ("config3", "config3", True, 1920, 1080, 0.05, None, 1, "vis_stream", 1),
+    ("config4", "config4", False, 1920, 1080, 0.05, None, 1, "vis_stream", 2),
+    ("config4b", "config4b", False, 1920, 1080, 0.05, None, 1, "vis_stream", 2),
+    ("config6", "config6", False, 1920, 1080, 0.05, None, 1, "vis_stream", 2),
+    ("config7", "config7", True, 1920, 1080, 1.3, None, 1, "vis_stream", 1),
+    ("config5", "config5", True, 1920, 1080, 1.0, None, 1, "vis_stream", 1),
+    ("config5 in 4 bands", "config5", True, 1920, 1080, 1.0, None, 4, "vis_stream", 4),
+)
+
+
+def _cpu_name() -> str:
+    """The host's CPU, where the oracle runs: lscpu's model name, vendor and
+    architecture."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60).stdout
+    except OSError:
+        out = ""
+    info = dict(ln.split(":", 1) for ln in out.splitlines() if ":" in ln)
+    name = (info.get("Model name") or "no model name").strip()
+    vendor = (info.get("Vendor ID") or "no vendor").strip()
+    return f"{name} ({vendor}, {platform.machine()})"
+
+
+def _against_oracle(label, card, ref, risk, banded, allowed) -> list:
+    """The device-vs-oracle rule (tests/test_tpu_device_frames.py:51-86 and
+    F12's depth rule): coverage equal, stats equal (a banded frame's
+    covered_pixels and fragments_shaded count the padded height, as the
+    reference's bands do, and are left out), color within 1 LSB outside
+    the oracle's shadow-flip risk set, which holds at most `allowed`
+    pixels, none of them past 180 LSB; depth within 1e-6 at all but 0.1 %
+    of the pixels and within 1e-5 there. Logs the numbers; returns the
+    rules broken."""
+    npix = risk.size
+    diff = np.abs(card.color.astype(int) - ref.color.astype(int)).max(axis=-1)
+    dz = np.abs(card.depth.astype(np.float64) - ref.depth.astype(np.float64))
+    strict, at_risk = diff * ~risk, diff * risk
+    skip = ("covered_pixels", "fragments_shaded") if banded else ()
+    stats = {k: (int(card.stats[k]), int(ref.stats[k])) for k in ref.stats if k not in skip}
+    log(f"oracle {label}: {int((diff > 0).sum())} px > 0 LSB, {int((diff > 1).sum())} px > 1 "
+        f"LSB ({int((strict > 1).sum())} outside the risk set, max {int(strict.max())}); risk "
+        f"set {int(risk.sum())} px (allowed {allowed}), max {int(at_risk.max())} LSB "
+        f"there; depth max diff {dz.max()!r}, {int((dz > 1e-6).sum())} px past 1e-6; "
+        f"coverage {float((ref.depth < 1.0).mean())!r}")
+    broken = []
+    if not np.array_equal(card.depth == 1.0, ref.depth == 1.0):
+        broken.append(f"coverage ({int(((card.depth == 1.0) != (ref.depth == 1.0)).sum())} px)")
+    if any(a != b for a, b in stats.values()):
+        broken.append(f"stats {stats}")
+    if strict.max() > 1:
+        broken.append("color outside the risk set")
+    if risk.sum() > allowed or at_risk.max() > 180:
+        broken.append("the risk set")
+    if (dz > 1e-6).sum() > npix // 1000 or dz.max() > 1e-5:
+        broken.append("depth")
+    return broken
+
+
+def phase_oracle(dev) -> dict:
+    """Full-width card frames held against the port's CPU oracle
+    (xr_torch.cpu_ref), which shares no binning, records or kernel with the
+    card's path: one frame of each path of ORACLE_PATHS through
+    Renderer.step + readback (ShardedRenderer's for bands, all on this
+    card), the same frame by the oracle on the CPU with its shadow-flip
+    risk set, under _against_oracle's rule. The launch counts are set to 0
+    before each card frame and read after it. A frame that breaks the rule
+    has its arrays written to build/oracle_mismatch/ and fails the phase
+    once every frame is checked. Returns the launches."""
+    from xr_torch import Renderer, ShardedRenderer, convert, kernels
+    from xr_torch.cpu_ref.margins import frame_and_risk
+
+    total = dict.fromkeys(KERNELS, 0)
+    cpu = _cpu_name()
+    log(f"oracle: the CPU oracle runs on {cpu} ({os.cpu_count()} logical CPUs, "
+        f"{torch.get_num_threads()} torch threads)")
+    failed, oracle_frames = [], {}
+    for label, name, full, w, h, t, backend, bands, kernel, per_frame in ORACLE_PATHS:
+        over = {"num_shards": bands} | ({"backend": backend} if backend else {})
+        p, _, scene = _setup(dev, _preset(name, full), w, h, 0.0, **over)
+        cam = p.animate(t)[0]
+        r = (ShardedRenderer(scene, p.config, devices=[dev]) if bands > 1
+             else Renderer(scene, p.config, dev))
+        kernels.reset_launches()
+        card = r.readback(r.step(scene, cam))
+        launches = dict(kernels.launches)
+        want = {k: (per_frame if k == kernel else 0) for k in KERNELS}
+        if launches != want:
+            raise AssertionError(f"oracle {label}: launches {launches}, expected {want}")
+        for k, v in launches.items():
+            total[k] += v
+        key = (name, full, w, h, t)
+        if key not in oracle_frames:
+            host = p.scene.replace(model_matrices=convert.to_numpy(scene.model_matrices))
+            t0 = time.perf_counter()
+            oracle_frames[key] = (*frame_and_risk(host, cam, p.config),
+                                  time.perf_counter() - t0)
+            log(f"oracle {label} {w}x{h} t={t}: the CPU oracle took "
+                f"{oracle_frames[key][2]:.2f} s ({cpu}); card launches {launches}")
+        ref, risk, _ = oracle_frames[key]
+        # the courtyard's long shallow shadow edges: the reference's config6
+        # device test allows npix / 500 (tests/test_tpu_device_frames.py:185-189)
+        allowed = w * h // (500 if name == "config6" else 1000)
+        broken = _against_oracle(f"{label} {w}x{h}", card, ref, risk, bands > 1, allowed)
+        if broken:
+            failed.append(f"{label}: {', '.join(broken)}")
+            out = os.path.join(ROOT, "build", "oracle_mismatch")
+            os.makedirs(out, exist_ok=True)
+            np.savez_compressed(os.path.join(out, label.replace(" ", "_") + ".npz"),
+                                card_color=card.color, card_depth=card.depth,
+                                oracle_color=ref.color, oracle_depth=ref.depth, risk=risk)
+        del r, scene, card
+    if failed:
+        raise AssertionError("card frames break the device-vs-oracle rule: " + "; ".join(failed))
+    log(f"oracle: all {len(ORACLE_PATHS)} card frames hold the device-vs-oracle rule; "
+        f"launches {total}")
+    return total
+
+
 def _entry_point(*args, timeout=600) -> str:
     """Run ``python -m args`` from the repository root; its stdout. Raises
     on a nonzero exit."""
@@ -1315,6 +1526,28 @@ def phase_entry_points() -> None:
     log(f"profile_frame config3 1920x1080, 8 frames: device {dev_ms!r} ms/frame, host "
         f"{host_ms!r} ms/frame, device busy share {dev_ms / host_ms!r}")
 
+    out = _entry_point("xr_torch.examples.run", "config1", "--oracle", "--frames", "2")
+    done = [e for e in map(json.loads, filter(None, out.splitlines())) if e["event"] == "done"]
+    if not done or done[0]["device"] != "cpu" or done[0]["frames"] != 2:
+        raise AssertionError(f"run config1 --oracle: no done event on the CPU in {out!r}")
+    log(f"run config1 --oracle: done {done[0]}")
+
+    from xr_torch.core.image import read_png
+
+    gold = os.path.join(ROOT, "build", "goldens")
+    _entry_point("xr_torch.tools.regen_goldens", gold)
+    with open(os.path.join(ROOT, "tests", "goldens", "manifest.json")) as f:
+        names = list(json.load(f))
+    for name in names:
+        got = read_png(os.path.join(gold, f"{name}.png")).astype(int)
+        want = read_png(os.path.join(ROOT, "tests", "goldens", f"{name}.png")).astype(int)
+        bad = int((np.abs(got - want).max(axis=-1) > 1).sum())
+        allowed = max(2, got.shape[0] * got.shape[1] // 1000) if name in SHADOW_EDGE else 0
+        if got.shape != want.shape or bad > allowed:
+            raise AssertionError(f"regen_goldens {name}: {bad} px past 1 LSB (allowed {allowed})")
+    log(f"regen_goldens: {len(names)} goldens rendered by the CPU oracle into {gold}, each "
+        "within 1 LSB of tests/goldens (shadow edges: max(2, 0.1 %) px past it)")
+
 
 def main() -> int:
     smi, clock_hz = phase_device()
@@ -1322,10 +1555,13 @@ def main() -> int:
     import xr_torch  # noqa: F401  (TF32 off)
 
     phase_build()
+    phase_native()
     kv = phase_kernel_vs_plain(dev, clock_hz)
     kv.update(phase_gathers(dev, clock_hz))
     phase_golden(dev)
     launches = phase_main_path(dev)
+    for k, v in phase_oracle(dev).items():
+        launches[k] += v
     phase_present(dev)
     for k, v in phase_gather_tools(dev).items():
         launches[k] += v

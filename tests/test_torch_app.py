@@ -3,8 +3,11 @@
 at the input stage, a NaN shader named at the shading stage), the
 shade_hook custom pixel stage with and without its ``frag`` G-buffer
 against the reference's hooked frames within 1 LSB (tests/test_app.py:
-121-214), recycle_framebuffers (tests/test_present.py:51) and
-``validate.check_scene`` / ``check_frame`` (tests/test_app.py:43-64).
+121-214), recycle_framebuffers (tests/test_present.py:51),
+``validate.check_scene`` / ``check_frame`` (tests/test_app.py:43-64), and
+the frame's camera matrices: built on the host, the reference's numpy
+matrices bit for bit at every preset's field of view (``torch.tan`` is an
+ulp off numpy's at 60 and 62 degrees, and CUDA's is another function).
 
 A reference hook is not always valid torch (``color[..., ::-1]``,
 ``xp.float32(np.nan)``), so each side gets its own hook computing the same
@@ -17,9 +20,10 @@ import pytest
 import torch
 
 from xr.app.renderer import Renderer as RefRenderer
+from xr.core import math3d as rm3
 from xr.scene import presets as ref_presets
 from xr_torch import Renderer, convert
-from xr_torch.app import validate
+from xr_torch.app import renderer, validate
 from xr_torch.core.types import MODE_DEPTH_ONLY
 from xr_torch.scene import presets
 
@@ -234,3 +238,17 @@ def test_validate_frame():
         validate.check_frame(frame.replace(depth=frame.depth * np.nan), p.config)
     with pytest.raises(ValueError, match="bin_overflow"):
         validate.check_frame(frame.replace(stats={**frame.stats, "bin_overflow": 3}), p.config)
+
+
+@pytest.mark.parametrize("name", sorted(presets.ALL_PRESETS))
+def test_camera_matrices_are_the_references(name):
+    factory = presets.ALL_PRESETS[name]
+    p = factory(16, device="cpu") if name == "config7" else (
+        factory(32, 32) if name == "config5" else factory())
+    cam, mm = p.animate(1.0)
+    scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), "cpu")
+    for w, h in ((1920, 1080), (192, 108)):
+        _, view, proj = renderer.camera_matrices(scene, cam, dataclasses.replace(
+            p.config, width=w, height=h))
+        want = rm3.camera_matrices(cam, w / h, np)
+        assert np.array_equal(view.numpy(), want[0]) and np.array_equal(proj.numpy(), want[1])

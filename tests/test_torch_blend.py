@@ -12,7 +12,12 @@ on the CPU, against the reference on the same numpy inputs:
   pane, as the reference's oracle does;
 - a textured transparent pane in a box's shadow (the reference's
   tests/test_blend.py scene): the sampler and the shadow test run on
-  transparent fragments as on the reference's.
+  transparent fragments as on the reference's;
+- dead chunks are skipped as the reference skips them: the composite runs
+  ceil(min(total, blend_capacity) / blend_chunk) chunks (config4b: 1 of 4,
+  also in each of four bands, whose count is read once for all of them),
+  none when every transparent triangle is culled, all of them past
+  blend_capacity; each frame within the rule above against the reference.
 """
 
 import dataclasses
@@ -32,10 +37,12 @@ from xr.cpu_ref.margins import shadow_flip_risk
 from xr.scene import presets as ref_presets
 from xr.scene import procedural as rproc
 from xr.scene import texture as rtx
-from xr_torch import Renderer, convert, kernels
+from xr_torch import Renderer, ShardedRenderer, convert, kernels
+from xr_torch.app import renderer
 from xr_torch.core import math3d as m3
 from xr_torch.pipeline.geometry import geometry
 from xr_torch.scene import presets
+from xr_torch.shading import blend
 
 torch.set_num_threads(1)
 
@@ -221,3 +228,106 @@ def test_textured_shadowed_pane_matches_reference():
     plain = scene.replace(materials=scene.materials.replace(
         tex_id=np.asarray([-1, -1, -1], np.int32)))
     assert (np.abs(_port(plain, cam, cfg).color.astype(int) - got.color.astype(int)) > 3).sum() > 300
+
+
+def _count_chunks(monkeypatch):
+    """Counts of the composite's chunks (its _fragment_colors calls) and of
+    its host reads of the live slot count."""
+    calls = {"chunks": 0, "reads": 0}
+    frag, live = blend._fragment_colors, blend.live_records
+
+    def counted_frag(*a, **k):
+        calls["chunks"] += 1
+        return frag(*a, **k)
+
+    def counted_live(*a, **k):
+        calls["reads"] += 1
+        return live(*a, **k)
+
+    monkeypatch.setattr(blend, "_fragment_colors", counted_frag)
+    monkeypatch.setattr(blend, "live_records", counted_live)
+    return calls
+
+
+def _live_chunks(scene_np, cam, cfg):
+    """(chunks the composite must run, chunks it holds) from the port's
+    geometry: ceil(min(total, cap) / ch) of ceil(cap / ch)."""
+    scene = convert.scene_to_torch(scene_np, "cpu")
+    _, view, proj = renderer.camera_matrices(scene, cam, cfg)
+    tri = geometry(scene, view, proj, cfg)
+    total = int(blend.transparent_mask(tri, scene).sum())
+    ch = min(cfg.blend_chunk, cfg.blend_capacity)
+    return -(-min(total, cfg.blend_capacity) // ch), -(-cfg.blend_capacity // ch)
+
+
+def _check_rule(got, ref, scene, cam, cfg, stats=True):
+    """The shadow-flip rule of check_reference, stats equal (stats=False: a
+    banded frame, whose pixel counts take the padded height)."""
+    assert ((got.depth == 1.0) == (ref.depth == 1.0)).all()
+    for k in ref.stats if stats else ():
+        assert int(got.stats[k]) == int(ref.stats[k]), k
+    diff = np.abs(got.color.astype(int) - ref.color.astype(int)).max(axis=-1)
+    risk = shadow_flip_risk(scene, cam, cfg)
+    assert (diff * ~risk).max() <= 1 and (diff * risk).max() <= 180
+
+
+@pytest.mark.parametrize("bands", [1, 4])
+def test_config4b_runs_only_its_live_chunks(monkeypatch, bands):
+    m = manifest("config4b")
+    p = ref_presets.small_preset(ref_presets.config4_blend(), m["width"], m["height"],
+                                 **m["overrides"], num_shards=bands)
+    cam, mm = p.animate(0.0, np)
+    scene = p.scene.replace(model_matrices=mm)
+    live, held = _live_chunks(scene, cam, convert.config_from(p.config))
+    assert (live, held) == (1, 4)
+    calls = _count_chunks(monkeypatch)
+    st = convert.scene_to_torch(scene, "cpu")
+    cfg = convert.config_from(p.config)
+    r = Renderer(st, cfg, "cpu") if bands == 1 else ShardedRenderer(st, cfg, devices=["cpu"])
+    got = r.readback(r.step(st, cam))
+    # each band composites the live chunk; the count is read once a device
+    assert calls == {"chunks": bands * live, "reads": 1}
+    rr = RefRenderer(scene, p.config)  # which ignores num_shards
+    _check_rule(got, rr.readback(rr.step(scene, cam)), scene, cam, p.config, stats=bands == 1)
+
+
+def test_culled_transparent_triangles_run_no_chunk(monkeypatch):
+    """The textured pane moved behind the eye: geometry drops it, so no
+    record is live and no chunk runs."""
+    scene = _rich_blend_scene()
+    pos = np.asarray(scene.mesh.positions).copy()
+    mat = np.asarray(scene.mesh.material_id)
+    pane = np.unique(np.asarray(scene.mesh.indices)[mat == 2])
+    pos[pane] += np.asarray([0.0, 0.0, 40.0], np.float32)
+    scene = scene.replace(mesh=scene.mesh.replace(positions=pos))
+    cam = Camera(
+        eye=np.asarray((2.5, 6.5, 6.5), np.float32),
+        target=np.asarray((0.3, 0.6, 0.0), np.float32),
+        up=np.asarray((0.0, 1.0, 0.0), np.float32),
+        fov_y=np.asarray(np.deg2rad(55.0), np.float32),
+        near=np.asarray(0.5, np.float32),
+        far=np.asarray(60.0, np.float32),
+    )
+    cfg = RenderConfig(width=96, height=60, mode=MODE_PHONG, shadow_map_size=128, blend=True,
+                       bin_capacity=4096, raster_path="binned")
+    assert _live_chunks(scene, cam, cfg)[0] == 0
+    calls = _count_chunks(monkeypatch)
+    got = _port(scene, cam, cfg)
+    assert calls == {"chunks": 0, "reads": 1}
+    _check_rule(got, render_frame(scene, cam, cfg), scene, cam, cfg)
+
+
+def test_over_capacity_runs_every_chunk_and_reports_overflow(monkeypatch):
+    m = manifest("config4b")
+    p = ref_presets.small_preset(ref_presets.config4_blend(), m["width"], m["height"],
+                                 **{**m["overrides"], "blend_capacity": 2, "blend_chunk": 1})
+    cam, mm = p.animate(0.0, np)
+    scene = p.scene.replace(model_matrices=mm)
+    assert _live_chunks(scene, cam, convert.config_from(p.config)) == (2, 2)
+    calls = _count_chunks(monkeypatch)
+    got = _port(scene, cam, p.config, strict=False)
+    assert calls == {"chunks": 2, "reads": 1}
+    r = RefRenderer(scene, p.config)
+    ref = r.readback(r.step(scene, cam), strict=False)
+    assert int(got.stats["blend_overflow"]) == 2
+    _check_rule(got, ref, scene, cam, p.config)

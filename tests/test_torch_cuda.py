@@ -15,7 +15,10 @@ and the option-free output, config7's config measured on the card against
 the CPU's, and the app layer on the card (debug_checks with a NaN vertex,
 a shade_hook reading frag.depth, recycle_framebuffers=False), both
 kernels on screen bands (y_offset != 0, records above the band's first
-row) and banded frames on the card equal to the unbanded ones. These
+row) and banded frames on the card equal to the unbanded ones, and the
+setup records of config5 and config7 at 1920x1080 on the card equal to
+the CPU's bit for bit (the frame's camera matrices are the host's on
+every device: CUDA's tan is not the CPU's). These
 tests need a CUDA device and skip without one. On a machine with a card
 and no JAX, run them without the suite's conftest (which imports JAX):
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``."""
@@ -494,3 +497,24 @@ def test_banded_frame_on_the_card_equals_unbanded(cuda, name):
     assert banded.depth.tobytes() == single.depth.tobytes()
     for k in ("tris_setup", "clip_overflow", "bin_overflow"):
         assert int(banded.stats[k]) == int(single.stats[k]), k
+
+
+@pytest.mark.parametrize("name", ["config5", "config7"])
+def test_setup_records_on_the_card_equal_the_cpus(cuda, name):
+    from xr_torch.app import renderer
+
+    p = (presets.config5_flythrough(708, 708) if name == "config5"
+         else presets.config7_terrain_lod(160, device=cuda))
+    p = presets.small_preset(p, 1920, 1080)
+    cam, mm = p.animate(1.0)
+    tris = []
+    for dev in ("cpu", cuda):
+        scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), dev)
+        _, view, proj = renderer.camera_matrices(scene, cam, p.config)
+        tri = geometry(scene, view, proj, p.config)
+        tris.append({k: getattr(tri, k).cpu() for k in ("xs", "ys", "z", "valid", "src_id",
+                                                         "count")})
+    for k in tris[0]:
+        a, b = tris[0][k], tris[1][k]
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b), k

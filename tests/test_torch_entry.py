@@ -3,7 +3,9 @@ the reference's (``xr/prof.py``) on the same timings; ``python -m
 xr_torch.examples.run`` as a user runs it, whose ``done`` stats equal the
 reference Renderer's (and, with ``--shards 2``, the reference
 ShardedRenderer's) on the same frame, with a scene saved and loaded back;
-the runner's refusal of a missing card; ``watch --once`` writing its PNG;
+``--oracle``, every frame through the port's CPU oracle, against the
+reference oracle's frame; the runner's refusal of a missing card (without
+``--oracle``); ``watch --once`` writing its PNG;
 and ``tools.profile_frame``: a capture on the CPU and its parse, and the
 parse of a trace with device events."""
 
@@ -18,6 +20,7 @@ import torch
 
 from xr import prof as ref_prof
 from xr.app.renderer import Renderer as RefRenderer
+from xr.cpu_ref import render_frame as ref_render_frame
 from xr.dist.shard import ShardedRenderer as RefShardedRenderer
 from xr.scene import presets as ref_presets
 from xr_torch import prof
@@ -84,10 +87,31 @@ def test_run_dumps_frames_and_a_trace(tmp_path):
     assert last.shape == (48, 64, 3) and (last == final).all()
 
 
+def test_run_oracle_renders_on_the_cpu(tmp_path):
+    """--oracle: every frame through the CPU oracle, with no --device; the
+    last frame (t = dt) has the reference oracle's stats, its dump the
+    reference oracle's pixels within 1 LSB."""
+    out = str(tmp_path / "out")
+    ev = _run("config1", "--oracle", "--frames", "2", "--width", "64", "--height", "64",
+              "--dump-every", "1", "--out", out)
+    assert set(ev) == {"first_frame", "done"}
+    assert ev["done"]["device"] == "cpu" and ev["done"]["frames"] == 2
+    p = ref_presets.small_preset(ref_presets.config1_cube(), 64, 64)
+    cam, mm = p.animate(1.0 / 30.0, np)
+    ref = ref_render_frame(p.scene.replace(model_matrices=mm), cam, p.config)
+    assert ev["done"]["stats"] == {k: int(v) for k, v in ref.stats.items()}
+    got = read_png(os.path.join(out, "config1_0001.png")).astype(int)
+    assert np.abs(got - ref.color.astype(int)).max() <= 1
+    assert sorted(os.listdir(out)) == ["config1_0000.png", "config1_0001.png",
+                                       "config1_final.png"]
+
+
 def test_run_refuses_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         run.resolve_device("cuda")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        run.main(["config1", "--frames", "1", "--width", "32", "--height", "32"])
     with pytest.raises(SystemExit, match="no CUDA device"):
         watch.main(["--once", "--device", "cuda:0"])
     assert run.resolve_device("cpu") == torch.device("cpu")

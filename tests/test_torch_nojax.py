@@ -3,11 +3,17 @@ xr_torch module (the gather tools, the OBJ loader, the screen bands, scene
 files, the profiler and the entry points included) imports and small
 config1, config2, config3, config4, config4b, config5, config6 and config7
 (its capacities measured by the port's own dry pass) frames render on the
-CPU without launching a kernel, config5 also in its preset's four bands."""
+CPU without launching a kernel, config5 also in its preset's four bands;
+the CPU oracle renders, with its shadow mask, the scalar rasterizer runs
+and the native codec parses. Each module of the oracle, the native codec
+and the two asset tools, imported alone in a fresh interpreter, brings in
+none of jax, flax or xr."""
 
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,6 +52,20 @@ for preset, cov in ((config3_terrain(48, 48), 0.5), (config1_cube(), 0.1),
         s = ShardedRenderer(scene, p.config, devices=["cpu"])
         g = s.readback(s.step(scene, cam))
         assert len(s.mesh) == 4 and g.color.tobytes() == f.color.tobytes()
+# the CPU oracle, its shadow mask, the scalar rasterizer and the native codec
+from xr_torch.cpu_ref import brute, render_frame
+from xr_torch.cpu_ref.margins import frame_and_risk
+from xr_torch.native import api
+p = small_preset(config4_blend(), 64, 48, shadow_map_size=64)
+cam, mm = p.animate(0.3)
+f, risk = frame_and_risk(p.scene.replace(model_matrices=mm), cam, p.config)
+assert f.color.shape == (48, 64, 3) and risk.shape == (48, 64) and (f.depth < 1.0).mean() > 0.3
+p = small_preset(config1_cube(), 32, 32)
+cam, mm = p.animate(0.7)
+b_color, b_depth = brute.render(p.scene.replace(model_matrices=mm), cam, p.config)
+o = render_frame(p.scene.replace(model_matrices=mm), cam, p.config)
+assert np.abs(b_depth - o.depth).max() <= 1e-5 and np.abs(b_color.astype(int) - o.color).max() <= 2
+assert api.parse_obj("assets/courtyard/courtyard.obj")["indices"].shape == (96456, 3)
 assert not any(kernels.launches.values())
 assert not any(k == "jax" or k.startswith(("jax.", "flax", "xr.")) for k, v in sys.modules.items() if v is not None)
 print("OK")
@@ -60,3 +80,25 @@ def test_port_imports_and_renders_without_jax():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().endswith("OK")
+
+
+ALONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(k for k, v in sys.modules.items()
+             if v is not None and (k in ("jax", "flax", "xr") or k.startswith(("jax.", "flax.", "xr."))))
+assert not bad, bad
+print("OK")
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "xr_torch.cpu_ref.oracle", "xr_torch.cpu_ref.margins", "xr_torch.cpu_ref.brute",
+    "xr_torch.native.api", "xr_torch.tools.regen_goldens", "xr_torch.tools.gen_assets",
+])
+def test_module_alone_imports_no_jax(module):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", ALONE, module], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip() == "OK"

@@ -11,10 +11,9 @@ dry pass runs in torch on the device it is given; its counts are read to
 the host once per camera. The config returned equals the reference's field
 by field for the same scene and cameras.
 
-The camera matrices of the dry pass are built on the host with numpy, in
-the reference's op order, as the reference's dry pass builds them:
-``torch.tan`` is an ulp off numpy's at some angles (config7's 62 degree fov
-among them), which moves a snapped vertex and with it a count.
+The camera matrices of the dry pass are the frame's: built on the host
+with numpy in the reference's op order (``pipeline.shadow.
+camera_matrices_np``), as the reference's dry pass builds them.
 """
 
 from __future__ import annotations
@@ -22,37 +21,15 @@ from __future__ import annotations
 import dataclasses
 import math
 
-import numpy as np
 import torch
 
 from xr_torch import convert
 from xr_torch.core.types import RenderConfig, Scene
 from xr_torch.pipeline.geometry import MAX_FAN, clip_budget, geometry
-from xr_torch.pipeline.shadow import look_at_np
+from xr_torch.pipeline.shadow import camera_matrices_np
 from xr_torch.raster.binning import _tile_ranges, grid_dims, span_classes
 
 I32 = torch.int32
-
-
-def perspective_np(fov_y, aspect, near, far) -> np.ndarray:
-    """numpy ``perspective`` (``xr/core/math3d.py:81``) with the reference's
-    f32 op order."""
-    fov_y, near, far = (convert.to_numpy(v, np.float32) for v in (fov_y, near, far))
-    f = np.float32(1.0) / np.tan(fov_y * np.float32(0.5))
-    a = far / (near - far)
-    b = near * far / (near - far)
-    z = np.zeros((), np.float32)
-    rows = [[f / np.float32(aspect), z, z, z], [z, f, z, z], [z, z, a, b],
-            [z, z, -np.ones((), np.float32), z]]
-    return np.stack([np.stack(r) for r in rows]).astype(np.float32)
-
-
-def camera_matrices_np(camera, aspect):
-    """(view, proj) of a Camera (array-like or tensor leaves) as numpy f32,
-    bit-equal to the reference's numpy camera_matrices."""
-    eye, target, up = (convert.to_numpy(getattr(camera, k)) for k in ("eye", "target", "up"))
-    return look_at_np(eye, target, up), perspective_np(camera.fov_y, aspect, camera.near,
-                                                       camera.far)
 
 
 def measure_frame(scene: Scene, camera, config: RenderConfig, model_matrices=None, *,

@@ -26,7 +26,7 @@ from xr_torch.core import math3d as m3
 from xr_torch.core import shade_math as sm
 from xr_torch.core.types import MODE_DEPTH_ONLY, MODE_PHONG, Frame, RenderConfig, Scene
 from xr_torch.pipeline.geometry import clip_capacity, geometry
-from xr_torch.pipeline.shadow import light_matrices_for_scene
+from xr_torch.pipeline.shadow import camera_matrices_np, light_matrices_for_scene
 from xr_torch.raster import dispatch
 from xr_torch.shading import blend
 from xr_torch.shading.deferred import shade_deferred
@@ -64,10 +64,16 @@ def sanitize_stats(scene: Scene, tri, depth, rgb) -> dict:
 
 def camera_matrices(scene: Scene, camera, config: RenderConfig):
     """The frame's (camera with tensor leaves, view, proj) on the scene's
-    device."""
+    device. view and proj are built on the host with numpy in the
+    reference's op order (``pipeline.shadow.camera_matrices_np``) and
+    copied to the device, so the card, the CPU and the reference render
+    from the same bits: ``torch.tan`` on CUDA, on the CPU and numpy's
+    ``tan`` differ by an ulp at some angles, which moves snapped vertices
+    (F12). A camera with tensor leaves on a card is read to the host."""
     dev = scene.mesh.positions.device
-    cam = convert.camera_to_torch(camera, dev)
-    return (cam, *m3.camera_matrices(cam, config.width / config.height, dev))
+    view, proj = camera_matrices_np(camera, config.width / config.height)
+    return (convert.camera_to_torch(camera, dev), convert.tensor(view, dev),
+            convert.tensor(proj, dev))
 
 
 def visible_triangles(scene, view, proj, config: RenderConfig, capacity: int):
@@ -122,11 +128,12 @@ def shade(tri, tid, scene: Scene, config: RenderConfig, eye, shadow: dict, shade
 
 
 def blend_pass(rgb, depth, tri, scene: Scene, config: RenderConfig, eye, shadow: dict,
-               y_offset: int = 0):
+               y_offset: int = 0, n_live=None):
     """The transparent records composited over the shaded frame (or band
-    of rows from y_offset): (rgb, blend_overflow)."""
+    of rows from y_offset): (rgb, blend_overflow). n_live: the live
+    transparent slots if already read (blend.live_records)."""
     return blend.composite_transparent(rgb, depth, tri, scene, config, eye, y_offset=y_offset,
-                                       **shadow)
+                                       n_live=n_live, **shadow)
 
 
 def render_step(scene: Scene, camera, config: RenderConfig, light_view=None,

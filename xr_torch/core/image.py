@@ -1,7 +1,7 @@
-"""Host-side image I/O: PNG (read/write) and PPM, numpy + stdlib zlib.
-
-Port of ``xr/core/image.py`` without the optional native encoder, so the
-port reads ``tests/goldens/*.png`` with no dependency on ``xr``.
+"""Host-side image I/O: PNG (read/write) and PPM, numpy + stdlib zlib
+(port of ``xr/core/image.py``). ``write_png`` takes the native encoder
+(``xr_torch.native``) where it builds, which writes the same bytes, and
+this module's Python encoder otherwise.
 """
 
 from __future__ import annotations
@@ -25,9 +25,17 @@ def _chunk(tag: bytes, payload: bytes) -> bytes:
 
 def write_png(path: str, image: np.ndarray) -> None:
     """Write an (H, W, 3) or (H, W) uint8 image as a non-interlaced 8-bit
-    RGB PNG."""
+    RGB PNG, natively when the library is available."""
+    from xr_torch.native import api
+
     img = np.asarray(image)
     assert img.dtype == np.uint8, f"expected uint8, got {img.dtype}"
+    if not api.write_png(path, img):
+        _write_png_python(path, img)
+
+
+def _write_png_python(path: str, img: np.ndarray) -> None:
+    """The Python encoder: filter 0 on every row, one zlib level-6 IDAT."""
     if img.ndim == 2:
         img = img[:, :, None].repeat(3, axis=2)
     h, w, c = img.shape

@@ -37,6 +37,7 @@ from xr_torch.core.types import MODE_DEPTH_ONLY, Frame, RenderConfig, Scene
 from xr_torch.pipeline.geometry import clip_capacity
 from xr_torch.pipeline.shadow import light_matrices_for_scene
 from xr_torch.raster import dispatch
+from xr_torch.shading import blend
 
 I32 = torch.int32
 
@@ -72,7 +73,9 @@ def band_config(config: RenderConfig, num_bands: int):
 class DeviceWork(NamedTuple):
     """What every band on one device reads: the scene there, the camera
     with tensor leaves, the setup records (tri) and those visibility sees
-    (vis_tri), the shadow map for shading and its pass's bin_overflow."""
+    (vis_tri), the shadow map for shading and its pass's bin_overflow, and
+    under blending the live transparent slots (read to the host once here
+    for all the device's bands)."""
 
     scene: Scene
     cam: object
@@ -80,6 +83,7 @@ class DeviceWork(NamedTuple):
     vis_tri: object
     shadow: dict
     shadow_bin_overflow: torch.Tensor
+    blend_live: Optional[int]
 
 
 def device_pass(scene: Scene, camera, config: RenderConfig, light_view, light_proj,
@@ -93,7 +97,8 @@ def device_pass(scene: Scene, camera, config: RenderConfig, light_view, light_pr
     if renderer.has_shadow_pass(config):
         shadow, s_bin_of = renderer.shadow_pass(scene, config, light_view, light_proj, capacity)
     tri, vis_tri = renderer.visible_triangles(scene, view, proj, config, capacity)
-    return DeviceWork(scene, cam, tri, vis_tri, shadow, s_bin_of)
+    live = blend.live_records(tri, scene, config) if config.blend else None
+    return DeviceWork(scene, cam, tri, vis_tri, shadow, s_bin_of, live)
 
 
 def band_pass(work: DeviceWork, band_cfg: RenderConfig, y_offset: int, capacity: int,
@@ -113,7 +118,7 @@ def band_pass(work: DeviceWork, band_cfg: RenderConfig, y_offset: int, capacity:
                              depth, y_offset)
         if band_cfg.blend:
             rgb, blend_of = renderer.blend_pass(rgb, depth, work.tri, work.scene, band_cfg, eye,
-                                                work.shadow, y_offset)
+                                                work.shadow, y_offset, work.blend_live)
         color = sm.resolve_u8(rgb)
     return color, depth, bin_of, blend_of
 

@@ -9,12 +9,14 @@ Usage:
   python -m xr_torch.examples.run config3 --frames 60 --profile
   python -m xr_torch.examples.run config5            # its preset's 4 bands
   python -m xr_torch.examples.run config2 --shards 2 --device cpu
+  python -m xr_torch.examples.run config1 --oracle --frames 2
 
 ``num_shards > 1`` (the preset's or ``--shards``) renders through
 ``ShardedRenderer``: on ``--device cuda`` its bands spread over every
 visible card, a card serving several bands when there are fewer cards; on
-any other device all bands run there in turn. The reference's ``--oracle``
-(its CPU oracle ``xr/cpu_ref``) stays the JAX package's.
+any other device all bands run there in turn. ``--oracle`` renders each
+frame with the CPU oracle (``xr_torch.cpu_ref.render_frame``) instead,
+on the CPU whatever ``--device`` says, with the same events.
 """
 
 from __future__ import annotations
@@ -68,6 +70,8 @@ def main(argv=None):
                     help="size capacity knobs from a measured dry pass over this run's "
                     "camera path (xr_torch/app/autosize.py)")
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    ap.add_argument("--oracle", action="store_true",
+                    help="render with the CPU oracle (xr_torch/cpu_ref), on the CPU")
     args = ap.parse_args(argv)
 
     import torch
@@ -76,7 +80,7 @@ def main(argv=None):
     from xr_torch.core import serialize
     from xr_torch.core.image import write_png
 
-    dev = resolve_device(args.device)
+    dev = torch.device("cpu") if args.oracle else resolve_device(args.device)
     p = make_preset(args.preset, dev)
     if args.scene:
         p = p._replace(scene=serialize.load_scene(args.scene))
@@ -104,16 +108,24 @@ def main(argv=None):
     if args.out:
         os.makedirs(args.out, exist_ok=True)
 
-    scene = convert.scene_to_torch(p.scene, dev)
-    if cfg.num_shards > 1:
-        # --device cuda: every visible card; otherwise all bands on dev
-        r = ShardedRenderer(scene, cfg, devices=None if str(dev) == "cuda" else [dev])
-    else:
-        r = Renderer(scene, cfg, dev)
+    if args.oracle:
+        r = OracleRunner(cfg)
 
-    def step(t):
-        cam, mm = p.animate(t)
-        return r.step(scene.replace(model_matrices=convert.tensor(mm, dev, torch.float32)), cam)
+        def step(t):
+            cam, mm = p.animate(t)
+            return r.step(p.scene.replace(model_matrices=mm), cam)
+    else:
+        scene = convert.scene_to_torch(p.scene, dev)
+        if cfg.num_shards > 1:
+            # --device cuda: every visible card; otherwise all bands on dev
+            r = ShardedRenderer(scene, cfg, devices=None if str(dev) == "cuda" else [dev])
+        else:
+            r = Renderer(scene, cfg, dev)
+
+        def step(t):
+            cam, mm = p.animate(t)
+            return r.step(scene.replace(model_matrices=convert.tensor(mm, dev, torch.float32)),
+                          cam)
 
     def stats(f):
         return {k: int(v) for k, v in f.stats.items()}
@@ -161,6 +173,31 @@ def main(argv=None):
         "mpixels_shaded_per_s": round(int(fr.stats["fragments_shaded"]) / dt / 1e6, 1),
         "stats": stats(fr),
     }), flush=True)
+
+
+class OracleRunner:
+    """The CPU oracle behind the renderer methods the frame loop calls. Its
+    frames are host frames already: readback hands the frame back, and
+    present keeps one frame in flight as Renderer's does."""
+
+    def __init__(self, config):
+        self.config = config
+        self._inflight = None
+
+    def step(self, scene, camera):
+        from xr_torch.cpu_ref import render_frame
+
+        return render_frame(scene, camera, self.config)
+
+    def readback(self, frame, strict: bool = True):
+        return frame
+
+    def present(self, frame, strict: bool = True):
+        prev, self._inflight = self._inflight, frame
+        return prev
+
+    def flush(self, strict: bool = True):
+        return self.present(None)
 
 
 def _maybe_trace(on: bool, log_dir: str):

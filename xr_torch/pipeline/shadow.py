@@ -1,12 +1,15 @@
-"""Shadow-pass setup of the port (port of ``xr/pipeline/shadow.py:17-48``):
+"""The frame's host matrices: the camera's view and projection, and the
+shadow pass's light matrices (port of ``xr/pipeline/shadow.py:17-48``):
 the directional light's view and orthographic projection, fit to the
 scene's world bounds.
 
-Host numpy on purpose, as in the reference: the light matrices are inputs
-of the frame, computed once per scene with numpy's f32 arithmetic in the
-reference's op order, so they equal the reference's bit for bit and the
-two-pass frame compares pixel-exact. The depth-only pass itself is the
-normal pipeline in MODE_DEPTH_ONLY seen from the light.
+Host numpy on purpose: the matrices are inputs of the frame, computed with
+numpy's f32 arithmetic in the reference's op order, so they equal the
+reference's bit for bit and every device renders from the same bits.
+(``torch.tan`` on the CPU, on CUDA and numpy's ``tan`` differ by an ulp at
+some angles, config5's 60 and config7's 62 degree fov among them, and one
+ulp in the projection moves snapped vertices: F12.) The depth-only pass
+itself is the normal pipeline in MODE_DEPTH_ONLY seen from the light.
 """
 
 from __future__ import annotations
@@ -66,6 +69,27 @@ def orthographic_np(left, right, bottom, top, near, far) -> np.ndarray:
         ],
         np.float32,
     )
+
+
+def perspective_np(fov_y, aspect, near, far) -> np.ndarray:
+    """numpy ``perspective`` (``xr/core/math3d.py:81``) with the reference's
+    f32 op order."""
+    fov_y, near, far = (to_numpy(v, np.float32) for v in (fov_y, near, far))
+    f = np.float32(1.0) / np.tan(fov_y * np.float32(0.5))
+    a = far / (near - far)
+    b = near * far / (near - far)
+    z = np.zeros((), np.float32)
+    rows = [[f / np.float32(aspect), z, z, z], [z, f, z, z], [z, z, a, b],
+            [z, z, -np.ones((), np.float32), z]]
+    return np.stack([np.stack(r) for r in rows]).astype(np.float32)
+
+
+def camera_matrices_np(camera, aspect):
+    """(view, proj) of a Camera (array-like or tensor leaves) as numpy f32,
+    bit-equal to the reference's numpy camera_matrices."""
+    eye, target, up = (to_numpy(getattr(camera, k)) for k in ("eye", "target", "up"))
+    return look_at_np(eye, target, up), perspective_np(camera.fov_y, aspect, camera.near,
+                                                       camera.far)
 
 
 def scene_world_bounds(scene: Scene):

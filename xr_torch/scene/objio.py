@@ -1,9 +1,11 @@
-"""OBJ/MTL asset loading of the port (port of ``xr/scene/objio.py``, the
-pure-Python parser; host numpy throughout): OBJ -> SoA mesh arrays, MTL ->
-material rows, ``map_Kd`` PNGs -> a uniform or ragged texture pyramid.
+"""OBJ/MTL asset loading of the port (port of ``xr/scene/objio.py``; host
+numpy throughout): OBJ -> SoA mesh arrays, MTL -> material rows, ``map_Kd``
+PNGs -> a uniform or ragged texture pyramid.
 
-Parsing a large OBJ in Python takes seconds, so the raw parse is kept per
-process, keyed on the file's path, modification time and size; the kept
+The OBJ parse is native (``xr_torch.native``) where the library builds and
+pure Python otherwise, with equal arrays. Parsing a large OBJ in Python
+takes seconds, so the raw parse is kept per process, keyed on the file's
+path, modification time and size, whichever parser produced it; the kept
 arrays are read-only.
 """
 
@@ -97,13 +99,20 @@ def _python_parse(path: str):
     }
 
 
-def parse_obj(path: str):
-    """Parse an OBJ file into raw arrays, once per process and file state."""
+def parse_obj(path: str, native: bool = True):
+    """Parse an OBJ file into raw arrays, once per process and file state:
+    natively when the library is available (native=False: the Python
+    parser), unless a parse of this file state is kept already."""
     st = os.stat(path)
     key = (os.path.abspath(path), st.st_mtime_ns, st.st_size)
     r = _PARSED.get(key)
     if r is None:
-        r = _python_parse(path)
+        if native:
+            from xr_torch.native import api
+
+            r = api.parse_obj(path)
+        if r is None:
+            r = _python_parse(path)
         for a in r.values():
             if isinstance(a, np.ndarray):
                 a.setflags(write=False)
@@ -111,11 +120,12 @@ def parse_obj(path: str):
     return dict(r, materials=list(r["materials"]))
 
 
-def load_obj(path: str) -> Tuple[Mesh, List[str]]:
-    """Load an OBJ file as a Mesh. Authored normals are kept; a vertex whose
-    normal is missing (zero, or the parser's default (0, 0, 1)) gets the
-    area-weighted smooth normal. Returns (mesh, material_names)."""
-    r = parse_obj(path)
+def load_obj(path: str, native: bool = True) -> Tuple[Mesh, List[str]]:
+    """Load an OBJ file as a Mesh (native: as for parse_obj). Authored
+    normals are kept; a vertex whose normal is missing (zero, or the
+    parser's default (0, 0, 1)) gets the area-weighted smooth normal.
+    Returns (mesh, material_names)."""
+    r = parse_obj(path, native)
     pos, nrm = r["positions"], r["normals"]
     idx = r["indices"]
     default_n = np.abs(nrm - np.array([0.0, 0.0, 1.0], np.float32)).sum(axis=1) == 0
@@ -215,7 +225,8 @@ def _to_pot_square(im: np.ndarray) -> np.ndarray:
     return im[yi][:, xi]
 
 
-def load_obj_scene(path: str, lights=None, max_tex_rows: int | None = None) -> Scene:
+def load_obj_scene(path: str, lights=None, native: bool = True,
+                   max_tex_rows: int | None = None) -> Scene:
     """Load an OBJ (+ its .mtl, + map_Kd textures) as a host-side Scene.
 
     MTL mapping: base_color = Kd, ks = mean(Ks), shininess = Ns, alpha = d,
@@ -223,8 +234,8 @@ def load_obj_scene(path: str, lights=None, max_tex_rows: int | None = None) -> S
     `-clamp on` -> tex_addr 1. Maps of one size build a uniform pyramid;
     mixed sizes, or a `max_tex_rows` texture-area cap (see
     build_ragged_pyramid), build a RaggedPyramid. A missing .mtl gives the
-    default material."""
-    mesh, names = load_obj(path)
+    default material. native: as for parse_obj."""
+    mesh, names = load_obj(path, native)
     mesh = with_vert_mat(mesh)
 
     mtl = {}

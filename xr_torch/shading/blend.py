@@ -9,10 +9,13 @@ parent's ``src_id``; a stable sort keeps the fan pieces of one source
 triangle in record order.
 
 The reference runs the composite as a ``lax.scan`` over chunks of
-``blend_chunk`` records and skips dead chunks with ``lax.cond``. Here every
-one of the ``ceil(blend_capacity / blend_chunk)`` chunks runs with its
-mask: a dead chunk's mask is all false, so the result is the same, and no
-count is read back to the host in the middle of a frame. Transparent
+``blend_chunk`` records and skips dead chunks with ``lax.cond`` on
+``ok.any()``. The live slots are a prefix of the source-ordered list, so
+chunk ``c`` is live exactly when ``c * blend_chunk < min(total,
+blend_capacity)``: the port reads that count to the host once per
+composite (``live_records``) and runs only the live chunks, each with the
+same masks as before. That is one device-to-host read per frame on a scene
+with an alpha column; scenes without one return before it. Transparent
 fragments get the deferred pass's shading model: interpolation, trilinear
 texturing with the analytic LOD, Phong and the shadow test.
 """
@@ -52,6 +55,14 @@ def opaque_valid(tri, scene: Scene) -> torch.Tensor:
     return tri.valid & ~transparent_mask(tri, scene)
 
 
+def live_records(tri, scene: Scene, config: RenderConfig):
+    """The live transparent slots, min(total, blend_capacity), read to the
+    host; None when the scene has no alpha column (nothing composites)."""
+    if material_alpha(scene) is None:
+        return None
+    return int(torch.clamp_max(transparent_mask(tri, scene).sum(), config.blend_capacity))
+
+
 def _src_ordered_ids(tri, tmask, cap: int):
     """Record ids of the transparent records in ascending source-triangle
     order (stable: fan pieces of one source triangle keep record order),
@@ -67,15 +78,18 @@ def _src_ordered_ids(tri, tmask, cap: int):
 
 
 def composite_transparent(color, depth, tri, scene: Scene, config: RenderConfig, eye,
-                          shadow_depth=None, light_viewproj=None, y_offset: int = 0):
+                          shadow_depth=None, light_viewproj=None, y_offset: int = 0,
+                          n_live=None):
     """Composite the transparent records over the shaded frame.
 
     color (H, W, 3) f32 linear, background included; depth (H, W) f32
     opaque depth (1.0 = background); both hold rows [y_offset, y_offset +
     H) of the full frame (a screen band walks the whole transparent list
-    against its own rows). Returns (color, overflow () i32): the
-    transparent records past blend_capacity, which strict readback raises
-    on."""
+    against its own rows). n_live: ``live_records`` of these records when
+    the caller has read it already (once per device for all its bands);
+    None reads it here. Only the ceil(n_live / blend_chunk) live chunks
+    run. Returns (color, overflow () i32): the transparent records past
+    blend_capacity, which strict readback raises on."""
     H, W = depth.shape
     dev = depth.device
     cap = config.blend_capacity
@@ -93,8 +107,10 @@ def composite_transparent(color, depth, tri, scene: Scene, config: RenderConfig,
     slot_valid = torch.arange(nchunks * ch, device=dev) < torch.clamp_max(total, cap)
     ids = torch.cat([ids, ids.new_zeros(nchunks * ch - cap)]).long()
     eye = torch.as_tensor(eye, dtype=F32, device=dev)
+    if n_live is None:
+        n_live = live_records(tri, scene, config)
 
-    for c in range(nchunks):
+    for c in range(-(-n_live // ch)):
         sl = ids[c * ch : (c + 1) * ch]
         ok = slot_valid[c * ch : (c + 1) * ch]
         xs = tri.xs[sl][:, None, None, :]  # (ch, 1, 1, 3)
