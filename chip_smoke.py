@@ -25,24 +25,39 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      loaded courtyard, 96,456 triangles: the 1024x1024 shadow pass and the
      1920x1080 camera pass) and on config5's full 1920x1080 frame
      (1,003,008 triangles in) at t = 3.0 as the preset sets it (z_earlyout
-     on) and with the flag off, which must give the same bits (the plain
-     fold over 431,358 record slots is compared once and timed by that one
-     call if it takes over 5 s); the stream kernel on config7's full frame
-     (177,920 triangles, every capacity measured by its dry pass on the
-     card, z_earlyout on) at t = 13 and 26; the stream kernel on config5's
-     full frame in the coordinates of band 0 and band 3 of its preset's four
-     (y_offset 0 and 864 of 1080 rows padded to 1152: the records of the
-     top of the frame lie far above the bottom band's first row), and both
+     on: the gated kernel, vis_stream_zgate), under z_band_gate and under
+     z_chunk_gate, and with the flag off, which must all give the same bits
+     (the plain fold over 431,358 record slots is compared once and timed
+     by that one call if it takes over 5 s); the stream kernel on config7's
+     full frame (177,920 triangles, every capacity measured by its dry pass
+     on the card, z_earlyout on) at t = 13 and 26; the stream kernel on
+     config5's full frame in the coordinates of each band of its preset's
+     four (y_offset 0, 288, 576 and 864 of 1080 rows padded to 1152: the
+     records of the top of the frame lie far above the bottom band's first
+     row); every gated launch against the reference's serial gate in plain
+     PyTorch (records.fold_plain_gated, whose skip counts it prints) and
+     against the ungated kernel on the same inputs, then GATE_STRESS more
+     launches in a row each held against the ungated kernel's bits on the
+     device (the merge order and the seeding from the scratch vary from
+     launch to launch; a launch that differs fails the phase), and timed in
+     turns with the ungated kernel (3 rounds); and both
      kernels on config4's camera pass in band 1 of 2 (y_offset 576), each
      timed; both kernels on config3 at golden size and in full under
      bin_zorder, bin_pairs=2 and bin_pairs=2 with a quad budget of 2 (which
      must send quads to the large bucket), with the depth test and in
-     painter's order, each also bit-exact against the option-free output;
+     painter's order, and the stream kernel under bin_zorder + z_earlyout
+     (gated), each also bit-exact against the option-free output;
      times both kernels and their plain versions on the full frames,
      beside the bound of each launch (the bytes and the integer operations
      no exact design avoids, _vis_work), and holds the output of the launch
      after the 50 timed ones against the plain version and against the
      first launch's
+     gate probe: xr_torch.tools.sweep_visibility rebuilds the kernels with
+     the gate's counters (-DXR_GATE_COUNTS) in a process of its own and
+     prints the card's skip share of one launch on config5 (t = 3.0, also
+     under z_chunk_gate and bin_zorder), config7 (t = 26) and config3 under
+     bin_zorder + z_earlyout, beside the plain serial gate's; config5's
+     must be above 0
   4. gathers: the lane gather (lane_gather, P1) at the probe's four shapes
      and the 16-channel and one-channel quad gathers (quad_gather P2,
      quad_gather1 P3) at the full 2,073,600-pixel shape, bit-exact against
@@ -63,7 +78,8 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      and read just after, one warm-up frame first:
      - config3 at 1920x1080 (100,352 triangles), 30 frames through
        Renderer.step + readback; the stream kernel in every frame; then the
-       same cameras under bin_zorder + z_earlyout and under bin_pairs=2,
+       same cameras under bin_zorder + z_earlyout (the gated kernel) and
+       under bin_pairs=2,
        byte-equal to those frames; then the app layer: 10 frames with
        debug_checks (every nf_* 0, beside 10 without), a NaN vertex through
        the stream kernel (no fault, strict readback names the input stage),
@@ -94,18 +110,21 @@ Phases, each of which raises on failure (exit code != 0, no final line):
        once for the shadow map and once a band
      - config5 (1,003,008 triangles: a 708x708 terrain and 40 boxes) at
        1920x1080 through Renderer, unbanded, 10 frames at t = 1.0 ... 10.0
-       of its frozen camera path, the stream kernel once a frame, every
-       overflow counter 0; then in its preset's four bands through
-       ShardedRenderer on this card on the same cameras: the stream kernel
-       four times a frame, every counter 0, tris_setup, color and depth
+       of its frozen camera path, the gated stream kernel (z_earlyout:
+       vis_stream_zgate) once a frame, every overflow counter 0; then in
+       its preset's four bands through ShardedRenderer on this card on the
+       same cameras: the gated kernel four times a frame, every counter 0, tris_setup, color and depth
        those of the unbanded frames; prints the peak device memory of
        each, a stage line of the banded frame (the per-device stages once,
        the per-band stages summed over the four) and the ms/frame of the
-       two, unbanded and banded in turns
+       two, unbanded and banded in turns; then the unbanded frames with
+       z_earlyout on (the gated kernel) and off (the ungated one) in turns,
+       byte-equal, 3 rounds of 5 frames
      - config7 (177,920 triangles, the LOD terrain) at 1920x1080, 30 frames
-       at t = 1.3 ... 39 of its camera path, the stream kernel once a frame,
+       at t = 1.3 ... 39 of its camera path, the gated kernel once a frame,
        every overflow counter 0; prints tris_setup beside the record
-       capacity its dry pass measured and the peak device memory
+       capacity its dry pass measured and the peak device memory; then
+       z_earlyout on and off in turns, as config5's
      - one config3 frame and one banded config5 frame through present() +
        flush() (the host copy started when the frame is queued, into pinned
        memory) against step() + readback(): the same bytes
@@ -174,6 +193,8 @@ BIN_OPTIONS = {
 }
 SOURCES = {
     "vis_stream": ("xr_torch/csrc/vis_stream.cu", "xr/raster/pallas_stream.py:80"),
+    # B1 under z_earlyout: the gates of the record loop (B3) on the card
+    "vis_stream_zgate": ("xr_torch/csrc/vis_stream.cu", "xr/raster/pallas_smem.py:138"),
     "vis_lists": ("xr_torch/csrc/vis_lists.cu", "xr/raster/pallas_smem.py:346"),
     "lane_gather": ("xr_torch/csrc/gather.cu", "tools/probe_lanegather.py:26"),
     "quad_gather": ("xr_torch/csrc/gather.cu", "tools/microbench_gather.py:108"),
@@ -184,6 +205,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 INT32_LANES = 132 * 64  # SMs x INT32 lanes per SM
 EDGE_OPS = 6  # per pixel of a record's bbox: three edge functions of two multiply-adds
 DECODE_OPS = 8  # per (tile, record) pair: unpacking the bbox and the tie offsets
+GATE_STRESS = 1000  # launches of the gated kernel a path, each held against the ungated one
 
 
 def log(msg: str) -> None:
@@ -253,6 +275,14 @@ def _kernel_fns(kernel: str):
         "vis_stream": (stream.prepare, stream.vis_stream, stream.vis_stream_plain),
         "vis_lists": (smem.prepare_lists, smem.vis_lists, smem.vis_lists_plain),
     }[kernel]
+
+
+def _b1(cfg) -> str:
+    """The name B1's launches count under: the gated variant under the z
+    gate (z_earlyout with the depth test)."""
+    from xr_torch.raster import stream
+
+    return "vis_stream_zgate" if stream.gated(cfg) else "vis_stream"
 
 
 def _smi(query: str, *fmt: str) -> str:
@@ -409,6 +439,22 @@ def _same_vis(label, what, got, want) -> None:
                 f"{label}: {field} differ from {what} at {int((a != b).sum())} pixels")
 
 
+def _gate_stress(label, launch, inp, cfg, want) -> None:
+    """GATE_STRESS launches of the gated kernel in a row, each held against
+    the ungated kernel's bits (want) on the device, with one read at the
+    end; raises if any launch differs."""
+    wt, wz = want[0], want[1].view(torch.int32)
+    bad = torch.zeros((), dtype=torch.int32, device=wt.device)
+    for _ in range(GATE_STRESS):
+        t, z = launch(inp, cfg)
+        bad += ((t != wt).any() | (z.view(torch.int32) != wz).any()).to(torch.int32)
+    n = int(bad)
+    if n:
+        raise AssertionError(f"{label}: {n} of {GATE_STRESS} launches in a row differ from the "
+                             "ungated kernel")
+    log(f"gate stress {label}: {GATE_STRESS} launches in a row, each the ungated kernel's bits")
+
+
 def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clock_hz=None,
                     geom_cfg=None, y_offset=0):
     """The kernel and its plain version on the records the frame's
@@ -419,21 +465,33 @@ def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clo
     from xr_torch.pipeline.geometry import clip_capacity
     from xr_torch.tools import timing
 
+    from xr_torch.raster import stream
+
     prepare, launch, plain = _kernel_fns(kernel)
     geom_cfg = geom_cfg or cfg
     _, tri = visible_triangles(scene, *view_proj, geom_cfg,
                                clip_capacity(scene.mesh.num_triangles, geom_cfg))
     inp = prepare(tri, cfg, y_offset)
+    gated = kernel == "vis_stream" and stream.gated(cfg)
     tk, zk = launch(inp, cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tp, zp = plain(inp, cfg)
+    if gated:  # the reference's serial gate, and what it skipped
+        tp, zp, skips = stream.vis_stream_plain_gated(inp, cfg)
+    else:
+        tp, zp = plain(inp, cfg)
     torch.cuda.synchronize()
     plain_once_ms = (time.perf_counter() - t0) * 1e3
-    label = f"{kernel} [{name}] {cfg.width}x{cfg.height} tiles {cfg.tile_h}x{cfg.tile_w}"
+    label = (f"{_b1(cfg) if kernel == 'vis_stream' else kernel} [{name}] "
+             f"{cfg.width}x{cfg.height} tiles {cfg.tile_h}x{cfg.tile_w}")
     _same_vis(label, "the plain version", (tk, zk), (tp, zp))
     # the merge order varies from launch to launch; the output must not
     _same_vis(label, "the first launch", launch(inp, cfg), (tk, zk))
+    if gated:  # the gate skips only what cannot win: the ungated kernel's bits
+        ungated = dataclasses.replace(cfg, z_earlyout=False, z_band_gate=False,
+                                      z_chunk_gate=False)
+        _same_vis(label, "the ungated kernel", launch(inp, ungated), (tk, zk))
+        _gate_stress(label, launch, inp, cfg, (tk, zk))
     fin = torch.isfinite(zp)
     err = float((zk[fin] - zp[fin]).abs().max()) if bool(fin.any()) else 0.0
     bg = int((tk == 2**31 - 1).sum())
@@ -445,13 +503,30 @@ def _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it=False, clo
            "dropped": int(inp.dropped), "bg": bg, "max_chunks": int(chunks.max()),
            "one_chunk_tiles": int((chunks == 1).sum()), "vis": (tk, zk)}
     line += f" chunks={int(chunks.sum())} (most in a tile {out['max_chunks']})"
+    if gated:
+        share = (skips["record"] + skips["chunk"]) / max(skips["walked"], 1)
+        out["plain_skips"] = dict(skips, skip_share=share)
+        line += (f"; the same bits as the ungated kernel; the reference's serial gate "
+                 f"(plain) skips {skips['record']} records by z_min, {skips['chunk']} in "
+                 f"chunks, {skips['band']} (record, band) pairs, of {skips['walked']} "
+                 f"walked: skip share {share!r}")
     if y_offset:
         by0 = (inp.rec[:, 16] & 0xFFFF) - 32768
         line += (f"; band at y_offset {y_offset}, records from local y "
                  f"{int(by0[tri.valid].min())} subpixels")
-    if time_it:
+    if time_it and gated:
+        # gated and ungated in turns, 3 rounds of 50 launches each queued
+        # behind ~20 ms of spinning: device time
+        turns = {"ms": [], "ungated_ms": []}
+        for k in ("ms", "ungated_ms") * 3:
+            c = cfg if k == "ms" else ungated
+            turns[k].append(timing.device_ms(lambda: launch(inp, c), reps=50, warmup=2)[0])
+        out.update({k: float(np.mean(v)) for k, v in turns.items()})
+        line += f"; in turns gated {turns['ms']!r} ms, ungated {turns['ungated_ms']!r} ms"
+    elif time_it:
         # 50 launches queued behind ~20 ms of spinning: device time
         out["ms"] = timing.device_ms(lambda: launch(inp, cfg), reps=50, warmup=2)[0]
+    if time_it:
         # after 50 launches in a row the scratch must still be the kernel's own
         _same_vis(label, "the plain version, after the timed launches", launch(inp, cfg),
                   (tp, zp))
@@ -477,7 +552,7 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
     from xr_torch.dist import shard
     from xr_torch.pipeline.shadow import light_matrices_for_scene
 
-    errs = {"vis_stream": [], "vis_lists": []}
+    errs = {"vis_stream": [], "vis_stream_zgate": [], "vis_lists": []}
 
     def run(kernel, p, cfg_over, scene, cam, name, time_it=False, cfg=None, view_proj=None,
             geom_cfg=None, y_offset=0):
@@ -485,7 +560,7 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
         view_proj = view_proj or _view_proj(dev, cam, geom_cfg or cfg)
         r = _compare_kernel(dev, kernel, cfg, scene, view_proj, name, time_it, clock_hz,
                             geom_cfg, y_offset)
-        errs[kernel].append(r["max_abs_err"])
+        errs[_b1(cfg) if kernel == "vis_stream" else kernel].append(r["max_abs_err"])
         return r
 
     m = _manifest("config3")
@@ -576,19 +651,26 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
             raise AssertionError(f"{label}: {r}")
 
     # config5: the deep scene's full frame, 431,358 record slots; as the
-    # preset sets it (z_earlyout on) and with the flag off: the same bits
+    # preset sets it (z_earlyout on: the gated kernel against the
+    # reference's serial gate and the ungated kernel, timed in turns with
+    # it), under each refinement of the gate, and with the flag off: the
+    # same bits
     p, cam, scene = _setup(dev, _preset("config5", full=True), 1920, 1080, 3.0)
     if scene.mesh.num_triangles != 1_003_008 or not p.config.z_earlyout:
         raise AssertionError("config5 must have 1,003,008 triangles and set z_earlyout")
     r = run("vis_stream", p, {}, scene, cam, "full config5 z_earlyout", time_it=True)
-    r0 = run("vis_stream", p, {"z_earlyout": False}, scene, cam, "full config5 no z_earlyout")
-    for x in (r, r0):
+    out[("vis_stream_zgate", "config5")] = r
+    rs = [r, run("vis_stream", p, {"z_earlyout": False}, scene, cam, "full config5 no z_earlyout")]
+    for gate in ("z_band_gate", "z_chunk_gate"):
+        rs.append(run("vis_stream", p, {gate: True}, scene, cam, f"full config5 {gate}"))
+        _same_vis(f"full config5 {gate}", "z_earlyout alone", rs[-1]["vis"], r["vis"])
+    for x in rs:
         if x["dropped"] or x["bg"] != r["bg"]:
             raise AssertionError(f"full config5: {x}")
-    # config5's first and last band of its preset's four: y_offset 0 and 864
+    # config5 in its preset's four bands: y_offset 0, 288, 576, 864
     n = p.config.num_shards
     _, hb, band = shard.band_config(p.config, n)
-    for b in (0, n - 1):
+    for b in range(n):
         r = run("vis_stream", p, {}, scene, cam, f"full config5 band {b} of {n}", time_it=True,
                 cfg=band, geom_cfg=p.config, y_offset=b * hb)
         if r["dropped"] or r["bg"] == band.width * band.height:
@@ -620,9 +702,13 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
                 mode = "depth" if depth_test else "painter"
                 base = run(kernel, p, {"depth_test": depth_test}, scene, cam,
                            f"config3 {label} {mode}")
-                for opt, over in BIN_OPTIONS.items():
+                options = dict(BIN_OPTIONS)
+                if kernel == "vis_stream" and depth_test:  # the gated kernel on sorted segments
+                    options["bin_zorder+z_earlyout"] = {"bin_zorder": True, "z_earlyout": True}
+                for opt, over in options.items():
                     r = run(kernel, p, {"depth_test": depth_test, **over}, scene, cam,
-                            f"config3 {label} {mode} {opt}")
+                            f"config3 {label} {mode} {opt}",
+                            time_it=label == "full" and opt == "bin_zorder+z_earlyout")
                     what = f"{kernel} config3 {label} {mode} {opt}"
                     _same_vis(what, "the option-free output", r["vis"], base["vis"])
                     if r["dropped"] or base["dropped"]:
@@ -635,9 +721,46 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
     return {
         "vis_stream": {"max_abs_err": max(errs["vis_stream"]), "library_ms": None,
                        **{k: out[("vis_stream", "config3")][k] for k in fields}},
+        # config5's full frame, gated; ungated_ms: the ungated kernel in turns
+        "vis_stream_zgate": {"max_abs_err": max(errs["vis_stream_zgate"]), "library_ms": None,
+                             **{k: out[("vis_stream_zgate", "config5")][k]
+                                for k in fields + ("ungated_ms",)}},
         "vis_lists": {"max_abs_err": max(errs["vis_lists"]), "library_ms": None,
                       **{k: out[("vis_lists", "config2")][k] for k in fields}},
     }
+
+
+def phase_gate_probe() -> None:
+    """The card's skip share: xr_torch.tools.sweep_visibility rebuilds the
+    kernels with the gate's counters (-DXR_GATE_COUNTS, into its own
+    library) in a process of its own and counts, in one launch on each
+    gated 1080p frame, the (record, warp) pairs that meet a footprint and
+    those the gate skipped; printed beside the share of records the
+    reference's serial gate skips (plain). config5's must be above 0."""
+    spec = "512,128,2,gatecounts"
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "xr_torch.tools.sweep_visibility", spec],
+                         cwd=ROOT, capture_output=True, text=True, timeout=900)
+    if res.returncode:
+        raise AssertionError(f"gate probe failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    row = json.loads(res.stdout.strip().splitlines()[-1])
+    for label, cell in row.items():
+        if not isinstance(cell, dict) or "card" not in cell:
+            continue
+        card, plain = cell["card"], cell["plain_serial_gate"]
+        if not (cell["exact"] and cell["exact_vs_ungated"]):
+            raise AssertionError(f"gate probe {label}: the probe build is not exact: {cell}")
+        log(f"gate probe {label} (build {row['build']}): card skip share {card['skip_share']!r} "
+            f"({card['skipped_in_walk']} (record, warp) pairs skipped in the walk, "
+            f"{card['dropped_at_staging']} dropped at staging, of {card['pairs']}; "
+            f"{card['seeded_chunks']} of {card['chunks']} chunks seeded); the reference's "
+            f"serial gate (plain) {plain['skip_share']!r} of {plain['walked']} records; "
+            f"probe build {cell['ms']!r} ms, ungated {cell['ungated_ms']!r} ms")
+    share = row["vis_stream config5"]["card"]["skip_share"]
+    if not share > 0:
+        raise AssertionError(f"gate probe: the gate skips nothing on config5 ({share})")
+    log(f"gate probe: {time.perf_counter() - t0:.1f} s with its build; fold kernels "
+        f"{row['fold_kernels']}")
 
 
 def _bit_exact(label, got, want) -> float:
@@ -788,7 +911,7 @@ def phase_golden(dev) -> None:
         # config1 renders by brute force (no kernel); the others stream,
         # the shadow-mapped ones twice (the shadow map, then the frame)
         want = 0 if name == "config1" else 2 if name in SHADOW_EDGE else 1
-        if launched["vis_stream"] != want or launched["vis_lists"]:
+        if launched[_b1(p.config)] != want or sum(launched.values()) != want:
             raise AssertionError(f"{name}: unexpected kernel launches {launched}")
 
 
@@ -910,7 +1033,7 @@ def phase_main_path(dev) -> dict:
                         ("bin_pairs=2", {"bin_pairs": 2})):
         cfg = dataclasses.replace(p.config, **over)
         times, got, launches = _run_frames(dev, scene, cfg, cams)
-        if launches["vis_stream"] < 30 or launches["vis_lists"]:
+        if launches[_b1(cfg)] < 30 or sum(launches.values()) != launches[_b1(cfg)]:
             raise AssertionError(f"config3 {label}: launches {launches} in 30 frames")
         count(launches)
         _same_frames(f"config3 {label} against config3", got, frames)
@@ -1054,7 +1177,7 @@ def phase_main_path(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     times, frames, launches = _run_frames(dev, scene, p.config, cams)
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches["vis_stream"] != len(cams) or launches["vis_lists"]:
+    if launches["vis_stream_zgate"] != len(cams) or sum(launches.values()) != len(cams):
         raise AssertionError(f"config5: launches {launches} in {len(cams)} frames")
     _coverage_between(frames, 0.3, 1.0)
     count(launches)
@@ -1073,7 +1196,7 @@ def phase_main_path(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     times, got, launches = _run_frames(dev, scene, p.config, cams, banded=True)
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches["vis_stream"] != n * len(cams) or launches["vis_lists"]:
+    if launches["vis_stream_zgate"] != n * len(cams) or sum(launches.values()) != n * len(cams):
         raise AssertionError(f"config5 in {n} bands: launches {launches} in {len(cams)} frames")
     count(launches)
     _same_bytes(f"config5 in {n} bands against unbanded", got, frames)
@@ -1083,6 +1206,7 @@ def phase_main_path(dev) -> dict:
         "(torch.cuda.max_memory_allocated)")
     _log_stages(f"config5 in {n} bands t=3.0", _banded_stage_times(dev, p, cams[2], scene))
     _banded_turns(dev, p, scene, cams[:5])
+    _gate_turns(dev, "config5", p, scene, cams[:5])
     del frames, got
 
     # config7: the LOD terrain along its camera path (t = 1.3 ... 39, the
@@ -1094,7 +1218,7 @@ def phase_main_path(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     times, frames, launches = _run_frames(dev, scene, p.config, cams)
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches["vis_stream"] != len(cams) or launches["vis_lists"]:
+    if launches["vis_stream_zgate"] != len(cams) or sum(launches.values()) != len(cams):
         raise AssertionError(f"config7: launches {launches} in {len(cams)} frames")
     _coverage_between(frames, 0.3, 1.0)
     count(launches)
@@ -1103,6 +1227,7 @@ def phase_main_path(dev) -> dict:
         + f"; record capacity {_capacity(scene, p.config)}; peak device memory "
         f"{peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
     _log_stages("config7 t=13.0", _stage_times(dev, p, p.animate(13.0)[0], scene))
+    _gate_turns(dev, "config7", p, scene, cams[9:14])
     del frames
     return total
 
@@ -1202,6 +1327,27 @@ def _banded_turns(dev, p, scene, cams, rounds=3) -> None:
             ms[label].append(float(np.mean(times)))
     log(f"config5 1920x1080 in turns, {rounds} rounds of {len(cams)} frames (step + readback, "
         "host clock, mean ms/frame of each round): "
+        + "; ".join(f"{k} {v}" for k, v in ms.items()))
+
+
+def _gate_turns(dev, name, p, scene, cams, rounds=3) -> None:
+    """The preset's unbanded ms/frame with z_earlyout on (the gated kernel)
+    and off (the ungated one), in turns, so the host clock's drift falls on
+    both alike; the frames must hold the same bytes."""
+    cfgs = {"z_earlyout": p.config, "no z_earlyout": dataclasses.replace(p.config,
+                                                                         z_earlyout=False)}
+    ms, first = {k: [] for k in cfgs}, {}
+    for _ in range(rounds):
+        for k, cfg in cfgs.items():
+            times, frames, launches = _run_frames(dev, scene, cfg, cams)
+            if launches[_b1(cfg)] != len(cams) or sum(launches.values()) != len(cams):
+                raise AssertionError(f"{name} {k}: launches {launches} in {len(cams)} frames")
+            first.setdefault(k, frames)
+            ms[k].append(float(np.mean(times)))
+    _same_frames(f"{name} z_earlyout against no z_earlyout", first["z_earlyout"],
+                 first["no z_earlyout"])
+    log(f"{name} 1920x1080 z_earlyout on and off in turns, {rounds} rounds of {len(cams)} frames "
+        "(step + readback, host clock, mean ms/frame of each round): "
         + "; ".join(f"{k} {v}" for k, v in ms.items()))
 
 
@@ -1374,9 +1520,9 @@ ORACLE_PATHS = (
     ("config4", "config4", False, 1920, 1080, 0.05, None, 1, "vis_stream", 2),
     ("config4b", "config4b", False, 1920, 1080, 0.05, None, 1, "vis_stream", 2),
     ("config6", "config6", False, 1920, 1080, 0.05, None, 1, "vis_stream", 2),
-    ("config7", "config7", True, 1920, 1080, 1.3, None, 1, "vis_stream", 1),
-    ("config5", "config5", True, 1920, 1080, 1.0, None, 1, "vis_stream", 1),
-    ("config5 in 4 bands", "config5", True, 1920, 1080, 1.0, None, 4, "vis_stream", 4),
+    ("config7", "config7", True, 1920, 1080, 1.3, None, 1, "vis_stream_zgate", 1),
+    ("config5", "config5", True, 1920, 1080, 1.0, None, 1, "vis_stream_zgate", 1),
+    ("config5 in 4 bands", "config5", True, 1920, 1080, 1.0, None, 4, "vis_stream_zgate", 4),
 )
 
 
@@ -1557,6 +1703,7 @@ def main() -> int:
     phase_build()
     phase_native()
     kv = phase_kernel_vs_plain(dev, clock_hz)
+    phase_gate_probe()
     kv.update(phase_gathers(dev, clock_hz))
     phase_golden(dev)
     launches = phase_main_path(dev)

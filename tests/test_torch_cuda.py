@@ -18,7 +18,11 @@ kernels on screen bands (y_offset != 0, records above the band's first
 row) and banded frames on the card equal to the unbanded ones, and the
 setup records of config5 and config7 at 1920x1080 on the card equal to
 the CPU's bit for bit (the frame's camera matrices are the host's on
-every device: CUDA's tan is not the CPU's). These
+every device: CUDA's tan is not the CPU's), and the stream kernel under
+the z gate (z_earlyout, with z_band_gate and z_chunk_gate) against the
+reference's serial gate in plain PyTorch and against the ungated kernel,
+on config5, config7 and config3 under bin_zorder, at 8-, 64- and 128-row
+tiles and launched 300 times in a row. These
 tests need a CUDA device and skip without one. On a machine with a card
 and no JAX, run them without the suite's conftest (which imports JAX):
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``."""
@@ -85,10 +89,11 @@ def _same(kernel_out, plain_out):
 
 def _stream_matches_plain(cuda, p, cam, scene, cfg):
     inp = stream.prepare(_tri(cuda, p, cam, scene, cfg), cfg)
-    n0 = kernels.launches["vis_stream"]
+    b1 = "vis_stream_zgate" if stream.gated(cfg) else "vis_stream"  # under z_earlyout
+    n0 = kernels.launches[b1]
     out = stream.vis_stream(inp, cfg)
     torch.cuda.synchronize()
-    assert kernels.launches["vis_stream"] == n0 + 1
+    assert kernels.launches[b1] == n0 + 1
     _same(out, stream.vis_stream_plain(inp, cfg))
     return inp
 
@@ -210,8 +215,9 @@ def test_cuda_frame_equals_cpu_frame(cuda, name):
     rc = Renderer(scene, p.config, cuda)
     kernels.reset_launches()
     fc = rc.readback(rc.step(scene, cam))
-    assert kernels.launches["vis_stream"] == (2 if name.startswith("config4") else
-                                              int(name != "config1"))
+    b1 = "vis_stream_zgate" if stream.gated(p.config) else "vis_stream"  # config7: z_earlyout
+    assert kernels.launches[b1] == (2 if name.startswith("config4") else int(name != "config1"))
+    assert sum(kernels.launches.values()) == kernels.launches[b1]
     cpu = convert.scene_to_torch(p.scene.replace(model_matrices=p.animate(1.7)[1]), "cpu")
     rh = Renderer(cpu, p.config, "cpu")
     fh = rh.readback(rh.step(cpu, cam))
@@ -490,7 +496,9 @@ def test_banded_frame_on_the_card_equals_unbanded(cuda, name):
     s = shard.ShardedRenderer(scene, p.config, devices=[cuda])
     kernels.reset_launches()
     banded = s.readback(s.step(scene, cam))
-    assert kernels.launches["vis_stream"] == 4 + (name == "config4b")
+    b1 = "vis_stream_zgate" if stream.gated(p.config) else "vis_stream"  # config5: z_earlyout
+    assert kernels.launches[b1] == 4 + (name == "config4b")
+    assert sum(kernels.launches.values()) == kernels.launches[b1]
     r = Renderer(scene, p.config, cuda)
     single = r.readback(r.step(scene, cam))
     assert banded.color.tobytes() == single.color.tobytes()
@@ -518,3 +526,71 @@ def test_setup_records_on_the_card_equal_the_cpus(cuda, name):
         a, b = tris[0][k], tris[1][k]
         assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
                            b.view(torch.int32) if b.is_floating_point() else b), k
+
+
+ZGATES = {"zmax": {}, "band": {"z_band_gate": True}, "chunk": {"z_chunk_gate": True},
+          "band_chunk": {"z_band_gate": True, "z_chunk_gate": True}}
+
+
+def _gated_matches(cuda, p, cam, scene, cfg, repeats=1):
+    """The gated kernel (counted as vis_stream_zgate) against the reference's
+    serial gate in plain PyTorch and against the ungated kernel, bit for
+    bit, launched `repeats` times. Returns the plain gate's skips."""
+    inp = stream.prepare(_tri(cuda, p, cam, scene, cfg), cfg)
+    assert inp.item_order is not None
+    t, z, skips = stream.vis_stream_plain_gated(inp, cfg)
+    ungated = dataclasses.replace(cfg, z_earlyout=False, z_band_gate=False, z_chunk_gate=False)
+    want = stream.vis_stream(inp, ungated)
+    _same(want, (t, z))
+    for _ in range(repeats):
+        n0 = dict(kernels.launches)
+        out = stream.vis_stream(inp, cfg)
+        torch.cuda.synchronize()
+        assert kernels.launches["vis_stream_zgate"] == n0["vis_stream_zgate"] + 1
+        assert kernels.launches["vis_stream"] == n0["vis_stream"]
+        _same(out, want)
+    return skips
+
+
+@pytest.mark.parametrize("gates", sorted(ZGATES))
+@pytest.mark.parametrize("name", ["config5", "config7", "config3_zorder"])
+def test_gated_kernel_matches_plain_and_ungated(cuda, name, gates):
+    """config5 (t = 3) and config7 (t = 20) at golden size and config3 under
+    bin_zorder, each under every set of the gate's flags."""
+    preset, t, over = {
+        "config5": (presets.config5_flythrough(64, 64), 3.0, {"num_shards": 1}),
+        "config7": (presets.config7_terrain_lod(64, device="cpu"), 20.0, {}),
+        "config3_zorder": (presets.config3_terrain(48, 48), 0.3, {"bin_zorder": True}),
+    }[name]
+    p, cam, scene = _scene(cuda, t, preset)
+    cfg = dataclasses.replace(p.config, z_earlyout=True, **over, **ZGATES[gates])
+    _gated_matches(cuda, p, cam, scene, cfg)
+
+
+@pytest.mark.parametrize("name", ["config5_block8", "config3_zorder"])
+def test_gated_kernel_repeated_launches(cuda, name):
+    """300 launches in a row: the merge order and the seeding from the
+    scratch vary, the bits do not. config5 in blocks of 8 records front to
+    back (the gate skips there), and config3 under BIN_OPTIONS' bin_zorder
+    + z_earlyout (the bin-options case that launches the gated kernel,
+    counted as vis_stream_zgate, never as vis_stream)."""
+    if name == "config5_block8":
+        p, cam, scene = _scene(cuda, 3.0, presets.config5_flythrough(64, 64))
+        cfg = dataclasses.replace(p.config, z_earlyout=True, num_shards=1, bin_zorder=True,
+                                  stream_block=8)
+    else:
+        p, cam, scene = _scene(cuda)
+        cfg = dataclasses.replace(p.config, **BIN_OPTIONS["zorder"])
+    skips = _gated_matches(cuda, p, cam, scene, cfg, repeats=300)
+    assert name != "config5_block8" or skips["record"] > 0
+
+
+@pytest.mark.parametrize("tile_h", [8, 64, 128])
+def test_gated_kernel_any_tile_height(cuda, tile_h):
+    """Tiles of 8 rows (one band) and of several 32-row slabs, on config3
+    and config2 with the gate and both refinements."""
+    for preset in (presets.config3_terrain(48, 48), presets.config2_icospheres()):
+        p, cam, scene = _scene(cuda, 0.4, preset)
+        cfg = dataclasses.replace(p.config, tile_h=tile_h, **ZGATES["band_chunk"],
+                                  z_earlyout=True)
+        _gated_matches(cuda, p, cam, scene, cfg)

@@ -7,7 +7,8 @@ CPU without launching a kernel, config5 also in its preset's four bands;
 the CPU oracle renders, with its shadow mask, the scalar rasterizer runs
 and the native codec parses. Each module of the oracle, the native codec
 and the two asset tools, imported alone in a fresh interpreter, brings in
-none of jax, flax or xr."""
+none of jax, flax or xr; so does each module of the z gate (the records,
+the stream prep and wrapper, the sweep tool) and of the math helpers."""
 
 import os
 import subprocess
@@ -95,6 +96,8 @@ print("OK")
 @pytest.mark.parametrize("module", [
     "xr_torch.cpu_ref.oracle", "xr_torch.cpu_ref.margins", "xr_torch.cpu_ref.brute",
     "xr_torch.native.api", "xr_torch.tools.regen_goldens", "xr_torch.tools.gen_assets",
+    "xr_torch.raster.records", "xr_torch.raster.stream", "xr_torch.tools.sweep_visibility",
+    "xr_torch.core.math3d", "xr_torch.core.types",
 ])
 def test_module_alone_imports_no_jax(module):
     env = dict(os.environ, PYTHONPATH=ROOT)

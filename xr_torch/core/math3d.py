@@ -9,6 +9,7 @@ is fixed.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 F32 = torch.float32
@@ -110,6 +111,33 @@ def rotation_z(angle, device) -> torch.Tensor:
         [c, -s, o, o], [s, c, o, o], [o, o, i, o], [o, o, o, i]])
 
 
+def orthographic(left, right, bottom, top, near, far, device) -> torch.Tensor:
+    """Right-handed orthographic projection onto the D3D clip volume
+    (z = -near -> 0, z = -far -> 1), for directional-light shadow passes:
+    built from Python floats and rounded to f32 once, as the reference's."""
+    l, r = float(left), float(right)
+    b, t = float(bottom), float(top)
+    n, f = float(near), float(far)
+    m = np.array(
+        [
+            [2.0 / (r - l), 0, 0, -(r + l) / (r - l)],
+            [0, 2.0 / (t - b), 0, -(t + b) / (t - b)],
+            [0, 0, 1.0 / (n - f), n / (n - f)],
+            [0, 0, 0, 1.0],
+        ],
+        np.float32,
+    )
+    return torch.as_tensor(m, device=device)
+
+
+def scaling(v, device) -> torch.Tensor:
+    """Scale by v (a scalar or three factors)."""
+    v = _t(v, device) * torch.ones(3, dtype=F32, device=device)
+    o = torch.zeros((), dtype=F32, device=device)
+    i = torch.ones((), dtype=F32, device=device)
+    return _mat4([[v[0], o, o, o], [o, v[1], o, o], [o, o, v[2], o], [o, o, o, i]])
+
+
 def translation(v, device) -> torch.Tensor:
     m = identity(device)
     m[:3, 3] = _t(v, device)
@@ -165,3 +193,11 @@ def transform_points(points: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor
         [points, torch.ones((n, 1), dtype=F32, device=points.device)], dim=1
     )
     return fma_matvec(matrix, p4)
+
+
+def transform_directions(dirs: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+    """(N,3) directions through the upper-left 3x3 of a 4x4 matrix (no
+    translation), in the order of transform_points (fma_matvec). Right for
+    rigid and uniformly scaled transforms; a non-uniform scale would need
+    the inverse transpose."""
+    return fma_matvec(matrix[:3, :3], dirs)

@@ -340,3 +340,20 @@ class Frame(_Replace):
     color: Any
     depth: Any
     stats: Any
+
+
+def as_numpy_scene(scene: Scene) -> Scene:
+    """A deep copy of a scene with every torch or numpy leaf as a numpy
+    array on the host (for the CPU oracle)."""
+
+    def leaf(x):
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return dataclasses.replace(x, **{f.name: leaf(getattr(x, f.name))
+                                             for f in dataclasses.fields(x)})
+        if hasattr(x, "detach"):  # a torch tensor
+            return x.detach().cpu().numpy().copy()
+        if isinstance(x, np.ndarray):
+            return x.copy()
+        return x
+
+    return leaf(scene)

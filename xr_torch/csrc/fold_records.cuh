@@ -58,6 +58,38 @@
 // and the store of the frame 0.014: the fold is bound by instruction rate
 // (about 170 instructions for a record in a warp, 2.6 warps a record), so a
 // cp.async double buffer for the staging was not built.
+//
+// The z gate (template parameter kGate; B1 under z_earlyout: the zmax,
+// band_zmax and chunk options of `_raster_scalar_records`). The TPU walks a
+// tile's records in order and bounds the tile's depth once a block; here a
+// tile's chunks run at once on many SMs, and a chunk's registers start at
+// +inf, so a bound from them alone stays +inf until one chunk has covered
+// a whole footprint. So, under the gate:
+// - The prep lists the chunks chunk-major (item_order: by chunks left to
+//   walk, so a tile's chunks come in their order, the first chunks of the
+//   tiles with the most come first and every tile's last chunk comes
+//   last), and a chunk of a tile that has several seeds its registers from
+//   the key scratch, where the tile's earlier chunks have merged. Keys only
+//   go down (atomicMin), so whatever a read sees (a relaxed load: never a
+//   torn key) is the (z, id) of a merged record: a valid start. The merge
+//   then writes only the pixels the chunk improved (`won`).
+// - A warp's bound is the largest depth of its 32x8 footprint inside the
+//   frame: the counterpart of band_zmax, over one 8-row band of 32 columns.
+//   It is taken after seeding and again every kRefresh records folded (a
+//   warp max, the same in every lane, so the walk stays convergent).
+// - kGateWalk: a warp skips a record whose z_min (field 13, deflated by 8
+//   ulps and 1e-35) exceeds its bound. Every depth the fold interpolates for
+//   the record lies above that z_min (each product and sum rounded on its
+//   own: at most ~5 ulps of error), so the record cannot win a pixel there.
+// - kGateStage (z_chunk_gate): the staging clears the record's bit in the
+//   mask of each warp whose bound at the chunk's start it exceeds, so that
+//   warp never reads it: the counterpart of the chunk aggregate, which on
+//   the TPU saved scalar instructions that one thread a record does not
+//   spend here.
+// The TPU's y-band mask (`ymask`) has its counterpart in the reject by warp
+// footprint (footprint_hits). Only the stream kernel gates; kGate 0 is the
+// fold as it was. XR_GATE_COUNTS (xr_torch/tools/sweep_visibility.py only)
+// counts the (record, warp) pairs the gates skipped.
 
 #pragma once
 
@@ -71,10 +103,11 @@ typedef unsigned long long u64;
 constexpr int kFields = 18;     // record width (xr_torch/raster/records.py)
 // The constants the design was tuned with. xr_torch/tools/sweep_visibility.py
 // rebuilds the kernels with other values (-DXR_THREADS=..., -DXR_ITEM=...,
-// -DXR_MIN_CTAS=...) and with its probes: XR_RUNS (a chunk is a run of
-// consecutive records; exact) and XR_NO_FOLD, XR_NO_MERGE, XR_NO_STAGE (the
-// pixel work, the merge or the staging compiled out; these break the output
-// and only show where the time goes). Nothing else defines them.
+// -DXR_MIN_CTAS=...; exact) and with its probes: XR_RUNS (a
+// chunk is a run of consecutive records; exact), XR_GATE_COUNTS (exact) and
+// XR_NO_FOLD, XR_NO_MERGE, XR_NO_STAGE (the pixel work, the merge or the
+// staging compiled out; these break the output and only show where the
+// time goes). Nothing else defines them.
 #ifndef XR_THREADS
 #define XR_THREADS 512
 #endif
@@ -99,6 +132,16 @@ constexpr int kCtasPerSm = 8;   // CTAs launched per SM, at most
 constexpr int kBg = 0x7fffffff;
 constexpr int kB16 = 32768;
 constexpr unsigned kInfBits = 0x7f800000u;
+constexpr unsigned kNegInfBits = 0xff800000u;
+constexpr int kGateWalk = 1;   // z_earlyout: a warp skips records behind its footprint
+constexpr int kGateStage = 2;  // z_chunk_gate: the staging drops them from its walk
+constexpr int kRefresh = 8;    // records folded between two bounds
+
+#ifdef XR_GATE_COUNTS
+// (record, warp) pairs that meet a footprint, dropped at staging, skipped
+// in the walk; chunks, chunks seeded from the scratch
+static __device__ unsigned long long g_gate_counts[5];
+#endif
 
 static_assert(kColGroups * kRowGroups == kWarps, "the footprints tile the slab");
 static_assert(kItem <= kThreads && kItem % 32 == 0, "one staging thread a record");
@@ -223,9 +266,11 @@ __device__ __forceinline__ unsigned footprint_hits(const Frame& f, int t, int sl
   return hits;
 }
 
-// Fold the staged record R into this lane's run.
+// Fold the staged record R into this lane's run; with kTrack, bit k of
+// `won` is set where row k improved.
+template <bool kTrack>
 __device__ __forceinline__ void fold_record(const int* R, Run& s, int sub,
-                                            bool depth_test) {
+                                            bool depth_test, unsigned& won) {
   const int byp = R[16], bxp = R[17];
   const int bx0 = (bxp & 0xFFFF) - kB16;
   const int bx1 = ((bxp >> 16) & 0xFFFF) - kB16;
@@ -264,6 +309,7 @@ __device__ __forceinline__ void fold_record(const int* R, Run& s, int sub,
           if (better) {
             s.zb[k] = zf;
             s.tb[k] = id;
+            if constexpr (kTrack) won |= 1u << k;
           }
         }
       }
@@ -272,6 +318,29 @@ __device__ __forceinline__ void fold_record(const int* R, Run& s, int sub,
     e1 += d1;
     e2 += d2;
   }
+}
+
+// A key of the scratch while other chunks merge into it: a relaxed load at
+// device scope, which the memory model makes single-copy atomic against the
+// atomicMin of the merge (a plain load racing with it is a data race), so
+// the (z, id) read is always one that some chunk merged.
+__device__ __forceinline__ u64 load_relaxed(const u64* p) {
+  u64 v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The warp's bound: the largest depth of its pixels inside the frame
+// (rows k < nlive of each lane), -inf if it has none; the same in every lane.
+__device__ __forceinline__ float warp_bound(const Run& s, int nlive) {
+  float m = __uint_as_float(kNegInfBits);
+#pragma unroll
+  for (int k = 0; k < kWarpRows; ++k) {
+    if (k < nlive) m = fmaxf(m, s.zb[k]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
 }
 
 // Write the run to the (height, width) outputs; every pixel no record won
@@ -312,24 +381,30 @@ __device__ __forceinline__ void clear_merge_state(const int* __restrict__ item_s
 }
 
 // Body of the fold kernel: this CTA's items, in a stride of the grid. Item
-// i is chunk i / nslab of the prep's table in slab i % nslab of its tile.
-template <class Walk>
+// i is chunk i / nslab of the prep's table (under the gate, chunk
+// item_order[i / nslab]) in slab i % nslab of its tile. kGate: 0, or
+// kGateWalk with or without kGateStage (the depth test only).
+template <class Walk, int kGate>
 __device__ __forceinline__ void fold_items(
     const int* __restrict__ rec, const Walk& walk,
     const int* __restrict__ large_ids, const int* __restrict__ large_count,
     const int* __restrict__ item_tile, const int* __restrict__ item_start,
-    int item_bound, u64* keys, int* arrivals,
+    const int* __restrict__ item_order, int item_bound, u64* keys, int* arrivals,
     int* __restrict__ tid_out, float* __restrict__ z_out, const Frame& f) {
+  constexpr bool kZ = kGate != 0;
   __shared__ __align__(8) int s_rec[kItem][kFields];
   __shared__ unsigned s_mask[kWarps][kWords];
   __shared__ int s_last;
+  __shared__ float s_wz[kWarps];  // the warps' bounds at the chunk's start (kGateStage)
   const bool depth_test = f.depth_test != 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int L = *large_count;
   const int nl = (L + kItem - 1) / kItem;  // chunks of the large bucket
   const int total = min(item_start[f.ntiles], item_bound) * f.nslab;
   for (int i = blockIdx.x; i < total; i += gridDim.x) {
-    const int j = i / f.nslab, slab = i - j * f.nslab;
+    int j = i / f.nslab;
+    const int slab = i - j * f.nslab;
+    if constexpr (kZ) j = item_order[j];
     const int t = item_tile[j];
     const int c = j - item_start[t];                    // chunk of the tile's walk
     const int nch = item_start[t + 1] - item_start[t];  // chunks of the tile
@@ -366,6 +441,33 @@ __device__ __forceinline__ void fold_items(
 
     Run s;
     run_init(s, f, t, slab);
+    float wz = 0.0f;   // the warp's bound
+    int nlive = 0;     // rows of this lane inside the frame
+    unsigned won = 0;  // rows this chunk improved
+    if constexpr (kZ) {
+      nlive = s.col < f.width ? min(s.rows, f.height - s.row0) : 0;
+      // start from what the tile's chunks have merged so far (its first
+      // chunk finds the scratch clear)
+      if (nch > 1 && c > 0) {
+#pragma unroll
+        for (int k = 0; k < kWarpRows; ++k) {
+          if (k < s.rows) {
+            unpack_key(load_relaxed(keys + (size_t)(s.row0 + k) * f.pitch + s.col), true,
+                       s.tb[k], s.zb[k]);
+          }
+        }
+      }
+      wz = warp_bound(s, nlive);
+      if constexpr ((kGate & kGateStage) != 0) {
+        if (lane == 0) s_wz[warp] = wz;
+      }
+#ifdef XR_GATE_COUNTS
+      if (threadIdx.x == 0) {
+        atomicAdd(&g_gate_counts[3], 1ull);
+        if (nch > 1 && c > 0) atomicAdd(&g_gate_counts[4], 1ull);
+      }
+#endif
+    }
 
     __syncthreads();  // the previous item's records and masks are consumed
 #ifdef XR_NO_STAGE
@@ -382,6 +484,21 @@ __device__ __forceinline__ void fold_items(
       if ((int)threadIdx.x < m) {
         const int* R = rec + (size_t)ids[first + threadIdx.x * stride] * kFields;
         hits = footprint_hits(f, t, slab, R[16], R[17]);
+#ifdef XR_GATE_COUNTS
+        if (kZ) atomicAdd(&g_gate_counts[0], (unsigned long long)__popc(hits));
+#endif
+        if constexpr ((kGate & kGateStage) != 0) {
+          const float zmin = __int_as_float(R[13]);
+          unsigned drop = 0;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) {
+            if (zmin > s_wz[w]) drop |= 1u << w;
+          }
+#ifdef XR_GATE_COUNTS
+          atomicAdd(&g_gate_counts[1], (unsigned long long)__popc(hits & drop));
+#endif
+          hits &= ~drop;
+        }
       }
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
@@ -391,18 +508,39 @@ __device__ __forceinline__ void fold_items(
     }
     __syncthreads();
 
+    int since = 0;  // records folded since the bound was taken
+#ifdef XR_GATE_COUNTS
+    unsigned long long skipped = 0;
+#endif
     for (int q = 0; q < kWords; ++q) {
       unsigned bits = s_mask[warp][q];
       while (bits) {
         const int r = q * 32 + __ffs(bits) - 1;
         bits &= bits - 1;
+        if constexpr ((kGate & kGateWalk) != 0) {
+          if (__int_as_float(s_rec[r][13]) > wz) {  // the same in every lane
+#ifdef XR_GATE_COUNTS
+            ++skipped;
+#endif
+            continue;
+          }
+        }
 #ifdef XR_NO_FOLD
         s.tb[0] ^= s_rec[r][14];  // keeps the walk of the masks alive
 #else
-        fold_record(s_rec[r], s, f.sub, depth_test);
+        fold_record<kZ>(s_rec[r], s, f.sub, depth_test, won);
 #endif
+        if constexpr (kZ) {
+          if (++since == kRefresh) {
+            since = 0;
+            wz = warp_bound(s, nlive);
+          }
+        }
       }
     }
+#ifdef XR_GATE_COUNTS
+    if (kZ && lane == 0) atomicAdd(&g_gate_counts[2], skipped);
+#endif
 
 #ifdef XR_NO_MERGE
     if (true) {
@@ -415,7 +553,8 @@ __device__ __forceinline__ void fold_items(
     // several chunks: merge the winners, and the last to arrive unpacks
 #pragma unroll
     for (int k = 0; k < kWarpRows; ++k) {
-      if (k < s.rows && s.tb[k] != (depth_test ? kBg : -1)) {
+      // under the gate the run may start from the scratch: merge what improved
+      if (k < s.rows && (kZ ? ((won >> k) & 1u) != 0 : s.tb[k] != (depth_test ? kBg : -1))) {
         u64* p = keys + (size_t)(s.row0 + k) * f.pitch + s.col;
         const u64 key = pack_key(s.zb[k], s.tb[k], depth_test);
         if (depth_test) {
@@ -491,28 +630,51 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) fold_kernel(
     const int* __restrict__ item_start, int item_bound, u64* keys,
     int* arrivals, int* __restrict__ tid_out, float* __restrict__ z_out,
     Frame f) {
-  fold_items(rec, walk, large_ids, large_count, item_tile, item_start, item_bound,
-             keys, arrivals, tid_out, z_out, f);
+  fold_items<Walk, 0>(rec, walk, large_ids, large_count, item_tile, item_start, nullptr,
+                      item_bound, keys, arrivals, tid_out, z_out, f);
 }
 
-// One visibility launch on `stream`: the clear kernel, then the fold kernel.
+// The fold under the z gate: a kernel of its own, so that the ungated one
+// keeps its parameters and its code.
+template <class Walk, int kGate>
+__global__ void __launch_bounds__(kThreads, kMinCtas) zgate_fold_kernel(
+    const int* __restrict__ rec, Walk walk, const int* __restrict__ large_ids,
+    const int* __restrict__ large_count, const int* __restrict__ item_tile,
+    const int* __restrict__ item_start, int item_bound, u64* keys,
+    int* arrivals, int* __restrict__ tid_out, float* __restrict__ z_out,
+    Frame f, const int* __restrict__ item_order) {
+  fold_items<Walk, kGate>(rec, walk, large_ids, large_count, item_tile, item_start,
+                          item_order, item_bound, keys, arrivals, tid_out, z_out, f);
+}
+
+// One visibility launch on `stream`: the clear kernel, then the fold kernel
+// with gate kGate (item_order: the chunk-major walk, under the gate only).
 // Allocates nothing. Returns the first error, or cudaErrorInvalidValue for a
-// shape the kernels do not take (f.ntiles 0, no item).
-template <class Walk>
+// shape the kernels do not take (f.ntiles 0, no item) or a gate without the
+// depth test or item_order.
+template <class Walk, int kGate>
 inline int launch_visibility(const int* rec, const Walk& walk, const int* large_ids,
                              const int* large_count, const int* item_tile,
-                             const int* item_start, int item_bound, u64* keys,
-                             int* arrivals, int* tid_out, float* z_out,
-                             const Frame& f, cudaStream_t stream) {
+                             const int* item_start, const int* item_order,
+                             int item_bound, u64* keys, int* arrivals, int* tid_out,
+                             float* z_out, const Frame& f, cudaStream_t stream) {
   const int grid = f.ntiles > 0 && item_bound >= f.ntiles ? fold_grid(f, item_bound) : 0;
-  if (grid <= 0) return (int)cudaErrorInvalidValue;
+  if (grid <= 0 || (kGate != 0 && (!f.depth_test || item_order == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
   clear_kernel<Walk><<<dim3(f.ntiles, f.nslab, 1), kThreads, 0, stream>>>(
       item_start, keys, arrivals, f);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fold_kernel<Walk><<<grid, kThreads, 0, stream>>>(
-      rec, walk, large_ids, large_count, item_tile, item_start, item_bound, keys,
-      arrivals, tid_out, z_out, f);
+  if constexpr (kGate == 0) {
+    fold_kernel<Walk><<<grid, kThreads, 0, stream>>>(
+        rec, walk, large_ids, large_count, item_tile, item_start, item_bound, keys,
+        arrivals, tid_out, z_out, f);
+  } else {
+    zgate_fold_kernel<Walk, kGate><<<grid, kThreads, 0, stream>>>(
+        rec, walk, large_ids, large_count, item_tile, item_start, item_bound, keys,
+        arrivals, tid_out, z_out, f, item_order);
+  }
   return (int)cudaGetLastError();
 }
 

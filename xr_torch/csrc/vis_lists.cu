@@ -38,7 +38,8 @@ extern "C" int xr_vis_lists(
   const xr::Frame f =
       xr::make_frame(ntiles, height, width, tile_h, tile_w, ntx, sub, depth_test);
   const xr::ListWalk walk = {lists, counts, cap};
-  return xr::launch_visibility(rec, walk, large_ids, large_count, item_tile,
-                               item_start, item_bound, keys, arrivals, tid_out,
-                               z_out, f, (cudaStream_t)stream);
+  return xr::launch_visibility<xr::ListWalk, 0>(rec, walk, large_ids, large_count,
+                                               item_tile, item_start, nullptr, item_bound,
+                                               keys, arrivals, tid_out, z_out, f,
+                                               (cudaStream_t)stream);
 }

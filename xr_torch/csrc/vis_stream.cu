@@ -18,6 +18,12 @@
 // chunks of a tile merge through a 64-bit (z, id) key. No tensor cores (the
 // edges need int32 wraparound, the depth a rounding per operation) and no
 // TMA for the records (gathered by id, 72 bytes each).
+//
+// Under z_earlyout the fold runs with the z gate (fold_records.cuh, kGate):
+// the chunks in the prep's chunk-major order, each seeded from what its
+// tile's earlier chunks merged, and a warp skips the records whose z_min
+// lies behind its whole footprint; under z_chunk_gate the staging drops
+// them from the warp's walk as well.
 
 #include "fold_records.cuh"
 
@@ -28,19 +34,46 @@ extern "C" const char* xr_cuda_error_string(int err) {
 // One visibility launch on `stream` (the clear kernel, then the fold
 // kernel); allocates nothing. keys: (nty * tile_h, ntx * 128) 64-bit scratch,
 // arrivals: ntiles * ceil(tile_h / 32) ints of scratch, neither initialised.
-// Returns the launch status, or cudaErrorInvalidValue for a tile shape the
-// kernel does not take (tile_w other than 128).
+// gate: 0, 1 (z_earlyout) or 3 (and z_chunk_gate), with the depth test and
+// item_order (item_bound ints: the chunk-major walk) only. Returns the launch
+// status, or cudaErrorInvalidValue for a tile shape the kernel does not take
+// (tile_w other than 128) or a gate it does not.
 extern "C" int xr_vis_stream(
     const int* rec, const int* sid, const int* starts, const int* run_counts,
     const int* tile_ran, const int* large_ids, const int* large_count,
-    const int* item_tile, const int* item_start, unsigned long long* keys,
-    int* arrivals, int* tid_out, float* z_out, int ntiles, int item_bound,
-    int height, int width, int tile_h, int tile_w, int ntx, int sub,
-    int depth_test, void* stream) {
+    const int* item_tile, const int* item_start, const int* item_order,
+    unsigned long long* keys, int* arrivals, int* tid_out, float* z_out, int ntiles,
+    int item_bound, int height, int width, int tile_h, int tile_w, int ntx, int sub,
+    int depth_test, int gate, void* stream) {
   const xr::Frame f =
       xr::make_frame(ntiles, height, width, tile_h, tile_w, ntx, sub, depth_test);
   const xr::StreamWalk walk = {sid, starts, run_counts, tile_ran};
-  return xr::launch_visibility(rec, walk, large_ids, large_count, item_tile,
-                               item_start, item_bound, keys, arrivals, tid_out,
-                               z_out, f, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (gate) {
+    case 0:
+      return xr::launch_visibility<xr::StreamWalk, 0>(
+          rec, walk, large_ids, large_count, item_tile, item_start, nullptr, item_bound,
+          keys, arrivals, tid_out, z_out, f, st);
+    case xr::kGateWalk:
+      return xr::launch_visibility<xr::StreamWalk, xr::kGateWalk>(
+          rec, walk, large_ids, large_count, item_tile, item_start, item_order,
+          item_bound, keys, arrivals, tid_out, z_out, f, st);
+    case xr::kGateWalk | xr::kGateStage:
+      return xr::launch_visibility<xr::StreamWalk, xr::kGateWalk | xr::kGateStage>(
+          rec, walk, large_ids, large_count, item_tile, item_start, item_order,
+          item_bound, keys, arrivals, tid_out, z_out, f, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
+
+#ifdef XR_GATE_COUNTS
+// The probe's counters (fold_records.cuh g_gate_counts) into out[5], then
+// cleared. Only a build with -DXR_GATE_COUNTS has it.
+extern "C" int xr_gate_counts(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, xr::g_gate_counts, sizeof(xr::g_gate_counts));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[5] = {0, 0, 0, 0, 0};
+  return (int)cudaMemcpyToSymbol(xr::g_gate_counts, zero, sizeof(zero));
+}
+#endif

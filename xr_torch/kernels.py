@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port: build, load, launch, count.
 
 Kernels (one launch wrapper each):
-  vis_stream    csrc/vis_stream.cu  streaming tile visibility
+  vis_stream    csrc/vis_stream.cu  streaming tile visibility; launches under
+                                    the z gate count as vis_stream_zgate
   vis_lists     csrc/vis_lists.cu   per-tile list visibility
   lane_gather   csrc/gather.cu      out[s, j] = tab[s, idx[j]]
   quad_gather   csrc/gather.cu      out[n] = sum_s tab[s, idx[n]] (u32, wrapping)
@@ -46,8 +47,8 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 TILE_W = 128  # tile width the visibility kernels take (csrc/fold_records.cuh)
 
-launches = {"vis_stream": 0, "vis_lists": 0, "lane_gather": 0, "quad_gather": 0,
-            "quad_gather1": 0}
+launches = {"vis_stream": 0, "vis_stream_zgate": 0, "vis_lists": 0, "lane_gather": 0,
+            "quad_gather": 0, "quad_gather1": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -113,7 +114,7 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.xr_vis_stream.argtypes = [p] * 13 + [i] * 9 + [p]
+            lib.xr_vis_stream.argtypes = [p] * 14 + [i] * 10 + [p]
             lib.xr_vis_stream.restype = i
             lib.xr_vis_lists.argtypes = [p] * 11 + [i] * 10 + [p]
             lib.xr_vis_lists.restype = i
@@ -179,15 +180,24 @@ def _outputs(height, width, tile_h, ntx, dev):
 
 def vis_stream(rec, sid, starts, run_counts, tile_ran, large_ids, large_count,
                item_tile, item_start,
-               *, height, width, tile_h, tile_w, ntx, subpixel, depth_test):
+               *, height, width, tile_h, tile_w, ntx, subpixel, depth_test,
+               item_order=None, chunk_gate=False):
     """Launch the streaming visibility kernel (see csrc/vis_stream.cu) on the
     current stream. Returns (tid (H,W) int32, z (H,W) f32, +inf background).
 
     rec (C,18) i32; sid (S,) i32; starts, run_counts, tile_ran (ntiles,) i32;
     large_ids (L,) i32; large_count (1,) i32; item_tile (bound,) i32 and
     item_start (ntiles + 1,) i32 as raster.records.item_table makes them —
-    all on one CUDA device. Tiles are tile_w = 128 wide and of any height."""
+    all on one CUDA device. Tiles are tile_w = 128 wide and of any height.
+    With item_order ((bound,) i32, raster.records.chunk_major_order) the z
+    gate runs (the depth test only; counted as vis_stream_zgate), and with
+    chunk_gate also its drop at staging."""
     _check_tile(tile_w)
+    if item_order is not None and not depth_test:
+        raise ValueError("the z gate needs the depth test")
+    if chunk_gate and item_order is None:
+        raise ValueError("chunk_gate refines the z gate: pass item_order")
+    gate = 0 if item_order is None else 3 if chunk_gate else 1
     lib = library()
     dev = rec.device
     ntiles = starts.shape[0]
@@ -200,15 +210,18 @@ def vis_stream(rec, sid, starts, run_counts, tile_ran, large_ids, large_count,
     _check_items(item_tile, item_start, ntiles, dev)
     if ntiles != ntx * (-(-height // tile_h)):
         raise ValueError("starts must have one entry per tile")
+    if item_order is not None:
+        _check("item_order", item_order, torch.int32, item_tile.shape, dev)
     tid, z, keys, arrivals = _outputs(height, width, tile_h, ntx, dev)
     _launch(
-        "vis_stream", lib.xr_vis_stream,
+        "vis_stream_zgate" if gate else "vis_stream", lib.xr_vis_stream,
         rec.data_ptr(), sid.data_ptr(), starts.data_ptr(), run_counts.data_ptr(),
         tile_ran.data_ptr(), large_ids.data_ptr(), large_count.data_ptr(),
-        item_tile.data_ptr(), item_start.data_ptr(), keys.data_ptr(), arrivals.data_ptr(),
-        tid.data_ptr(), z.data_ptr(),
+        item_tile.data_ptr(), item_start.data_ptr(),
+        None if item_order is None else item_order.data_ptr(), keys.data_ptr(),
+        arrivals.data_ptr(), tid.data_ptr(), z.data_ptr(),
         ntiles, item_tile.shape[0], height, width, tile_h, tile_w, ntx, subpixel,
-        int(bool(depth_test)),
+        int(bool(depth_test)), gate,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     return tid, z

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from xr_torch.convert import to_numpy
+from xr_torch.core import math3d as m3
 from xr_torch.core.types import Scene
 
 
@@ -57,18 +58,7 @@ def look_at_np(eye, target, up) -> np.ndarray:
 
 def orthographic_np(left, right, bottom, top, near, far) -> np.ndarray:
     """numpy ``orthographic`` (``xr/core/math3d.py:106``)."""
-    l, r = float(left), float(right)
-    b, t = float(bottom), float(top)
-    n, f = float(near), float(far)
-    return np.array(
-        [
-            [2.0 / (r - l), 0, 0, -(r + l) / (r - l)],
-            [0, 2.0 / (t - b), 0, -(t + b) / (t - b)],
-            [0, 0, 1.0 / (n - f), n / (n - f)],
-            [0, 0, 0, 1.0],
-        ],
-        np.float32,
-    )
+    return m3.orthographic(left, right, bottom, top, near, far, "cpu").numpy()
 
 
 def perspective_np(fov_y, aspect, near, far) -> np.ndarray:

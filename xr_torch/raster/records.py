@@ -11,8 +11,8 @@ Field map of the (C, 18) int32 record:
   9..11  z0 z1 z2 (f32 bits)
   12     inv_area = 1/area2 (f32 bits, 0 for degenerate) — the value chain
          of fixedpoint.barycentrics_f32, so no pixel loop ever divides
-  13     z_min deflated by 8 ulps (f32 bits; the reference's occlusion
-         early-out bound, kept for layout parity)
+  13     z_min deflated by 8 ulps plus 1e-35 (f32 bits): the z early-out's
+         bound, below every depth the fold can interpolate for the record
   14     triangle id
   15     top-left tie offsets o_k in bits 0..2 (accept iff e_k >= o_k)
   16     packed y bbox (by0+32768) | (by1+32768) << 16, band-translated
@@ -24,9 +24,15 @@ merge the partial results of a tile through a packed 64-bit (z, id) key:
 ``item_table`` lists the chunks for them, ``pack_key`` / ``unpack_key`` are
 the key in plain PyTorch and ``fold_plain_items`` is that algorithm on top
 of the plain fold.
+
+``fold_plain_gated`` is the fold under the reference's z early-out
+(``z_earlyout`` and its refinements): serial in records, as the TPU kernel
+runs it, and vectorised over tiles; it counts what each gate skipped.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -38,6 +44,7 @@ from xr_torch.raster.common import BG_TRI_ID
 NFIELDS = 18
 PLAIN_CHUNK = 8  # records folded per step of the plain version
 ITEM_RECORDS = 128  # records per work item of the kernels (csrc/fold_records.cuh kItem)
+CHUNK_G = 8  # records under one aggregate z_min in the reference's chunk gate
 _B16 = 32768
 I32, F32 = torch.int32, torch.float32
 
@@ -95,9 +102,11 @@ def gather_field_records(lists: torch.Tensor, packed: torch.Tensor, C: int) -> t
     return torch.where(empty & is_id, BG_TRI_ID, rows)
 
 
-def _fold_chunk(zb, tb, r, px, py, depth_test: bool):
+def _fold_chunk(zb, tb, r, px, py, depth_test: bool, rows=None):
     """Fold (ntiles, K, 18) gathered records (id BG = empty slot) into the
-    (ntiles, TH, TW) carry, the kernels' per-pixel test batched over K."""
+    (ntiles, TH, TW) carry, the kernels' per-pixel test batched over K;
+    rows (ntiles, K, TH, 1) bool, if given, masks the rows a record may
+    touch."""
 
     def f(k):
         return r[:, :, k, None, None]
@@ -113,6 +122,8 @@ def _fold_chunk(zb, tb, r, px, py, depth_test: bool):
     ) + (e[2].to(F32) * inv) * fz[:, :, 2, None, None]
     ids = f(14)
     mask = mask & rc.depth_range_mask(zf) & (ids != BG_TRI_ID)
+    if rows is not None:
+        mask = mask & rows
     return rc.merge_chunk(zb, tb, torch.where(mask, zf, rc.BG_DEPTH), ids, depth_test)
 
 
@@ -147,6 +158,113 @@ def fold_plain(rec: torch.Tensor, chunks, config: RenderConfig, tile_ran=None):
     large bucket is). tile_ran (ntiles,) i32: tiles with 0 stay background.
     Returns (tid (H,W) i32, z (H,W) f32, +inf background)."""
     return _finish(*_fold_carry(rec, chunks, config), config, tile_ran)
+
+
+def _segment_zmin(rec, sid, starts, n, k):
+    """Field-13 z_min of slots k (K,) of every tile's segment, read only
+    through a live id: +inf past n[t]. Returns (ids (ntiles, K) with the
+    empty slot C past the end, z_min (ntiles, K) f32)."""
+    C = rec.shape[0]
+    live = k[None, :] < n[:, None]
+    gidx = torch.clamp(starts[:, None] + k[None, :], 0, max(sid.shape[0] - 1, 0)).long()
+    ids = torch.where(live, sid[gidx], C) if sid.numel() else torch.full_like(gidx, C, dtype=I32)
+    zmin = rec[torch.clamp_max(ids, C - 1).long(), 13].contiguous().view(F32)
+    return ids, torch.where(live, zmin, float("inf"))
+
+
+def group_zmin(rec, sid, starts, n) -> torch.Tensor:
+    """The chunk gate's aggregates: the least z_min of each CHUNK_G
+    consecutive records of every tile's segment sid[starts[t] : starts[t] +
+    n[t]], +inf for the slots past its end (the reference's prep,
+    ``pallas_stream.py:265-275``). Returns (ntiles, ceil(max n / CHUNK_G))
+    f32. One host read of max n."""
+    ng = -(-int(n.max()) // CHUNK_G) if n.numel() else 0
+    k = torch.arange(ng * CHUNK_G, dtype=I32, device=rec.device)
+    return _segment_zmin(rec, sid, starts, n, k)[1].reshape(n.shape[0], ng, CHUNK_G).amin(-1)
+
+
+def fold_plain_gated(rec, large_ids, large_count, sid, starts, n, config: RenderConfig,
+                     tile_ran=None):
+    """The reference's z early-out in plain PyTorch (``xr/raster/
+    pallas_stream.py:157-179`` over ``pallas_smem.py`` ``_raster_scalar_
+    records``): serial in records, vectorised over tiles. The large bucket
+    is folded ungated; then each tile's segment sid[starts[t] : starts[t] +
+    n[t]] runs in blocks of ``stream_block`` records. Before a block the
+    bound is the max of the tile's current z, or under ``z_band_gate`` with
+    tile_h > 8 the max of each 8-row band (the tile's is their max). A
+    record whose z_min (field 13, read through a live id only) exceeds the
+    tile's bound is skipped; under ``z_band_gate`` so is each band whose
+    bound it exceeds; under ``z_chunk_gate`` a group of CHUNK_G records
+    whose ``group_zmin`` exceeds the bound is skipped whole. The gates are
+    off without the depth test or ``z_earlyout``. They never change the
+    result: it equals ``fold_plain`` over the same walk bit for bit.
+
+    Returns (tid, z, skips): skips counts the segment records walked
+    (``walked``), the records the record gate skipped (``record``), the
+    records inside groups the chunk gate skipped (``chunk``), and the
+    (record, band) pairs of a record's bbox the band gate skipped
+    (``band``), as ints (one host read)."""
+    C = rec.shape[0]
+    dev = rec.device
+    nty, ntx = grid_dims(config)
+    ntiles, TH, TW = nty * ntx, config.tile_h, config.tile_w
+    px, py = tile_pixels(config, dev)
+    zb, tb = rc.new_carry((ntiles, TH, TW), config.depth_test, dev)
+    zero = torch.zeros((1,), dtype=I32, device=dev)
+    for ids in id_chunks(large_ids, zero, large_count, C):
+        r = gather_field_records(ids, rec, C).expand(ntiles, -1, NFIELDS)
+        zb, tb = _fold_chunk(zb, tb, r, px, py, config.depth_test)
+    gate = config.depth_test and config.z_earlyout
+    chunk = gate and config.z_chunk_gate
+    nb = TH // 8 if gate and config.z_band_gate and TH > 8 else 0
+    blk = config.stream_block
+    step = CHUNK_G if chunk else math.gcd(blk, PLAIN_CHUNK)
+    if chunk:
+        assert blk % CHUNK_G == 0, "stream_block must be a CHUNK_G multiple"
+        groups = group_zmin(rec, sid, starts, n)
+    skips = dict.fromkeys(("record", "chunk", "band"), torch.zeros((), dtype=torch.int64,
+                                                                    device=dev))
+    is_id = torch.arange(NFIELDS, device=dev) == 14
+    j = torch.arange(step, dtype=I32, device=dev)
+    n_max = int(n.max()) if n.numel() else 0
+    for s in range(0, n_max, step):
+        ids, zmin = _segment_zmin(rec, sid, starts, n, s + j)
+        r = gather_field_records(ids, rec, C)
+        if gate:
+            if s % blk == 0:  # a block starts: the bound from the tile's current z
+                if nb:
+                    band_z = zb[:, : nb * 8].reshape(ntiles, nb, 8, TW).amax((2, 3))
+                    zmax = band_z.amax(1)
+                else:
+                    zmax = zb.amax((1, 2))
+            live = ids < C
+            keep = live
+            if chunk:
+                shut = (groups[:, s // CHUNK_G] > zmax)[:, None]
+                skips["chunk"] = skips["chunk"] + (live & shut).sum()
+                keep = keep & ~shut
+            over = keep & (zmin > zmax[:, None])
+            skips["record"] = skips["record"] + over.sum()
+            keep = keep & ~over
+            rows = None
+            if nb:
+                ok = zmin[..., None] <= band_z[:, None, :]  # (ntiles, K, nb)
+                byp = r[..., 16].long()
+                by0, by1 = (byp & 0xFFFF) - _B16, ((byp >> 16) & 0xFFFF) - _B16
+                band_py = py[:, 0, : nb * 8 : 8, 0][:, None, :]  # (ntiles, 1, nb) first row
+                meets = (by1[..., None] >= band_py) & (by0[..., None] <= band_py + 7 * config.subpixel)
+                skips["band"] = skips["band"] + (keep[..., None] & meets & ~ok).sum()
+                rows = ok.repeat_interleave(8, dim=2)
+                if TH > nb * 8:
+                    rows = torch.cat([rows, rows.new_ones(rows.shape[:2] + (TH - nb * 8,))], 2)
+                rows = rows[..., None]
+            r = torch.where(~keep[..., None] & is_id, BG_TRI_ID, r)
+            zb, tb = _fold_chunk(zb, tb, r, px, py, True, rows)
+        else:
+            zb, tb = _fold_chunk(zb, tb, r, px, py, config.depth_test)
+    out = {k: int(v) for k, v in skips.items()}
+    out["walked"] = int(n.sum()) if n.numel() else 0
+    return (*_finish(zb, tb, config, tile_ran), out)
 
 
 def id_chunks(ids: torch.Tensor, starts: torch.Tensor, n: torch.Tensor, C: int, stride=1):
@@ -192,6 +310,23 @@ def item_table(n: torch.Tensor, ran: torch.Tensor, large_count: torch.Tensor, bo
     j = torch.arange(bound, dtype=I32, device=n.device)
     item_tile = torch.searchsorted(ends, j, right=True, out_int32=True)
     return item_tile, item_start
+
+
+def chunk_major_order(item_tile: torch.Tensor, item_start: torch.Tensor) -> torch.Tensor:
+    """The order in which the gated kernel takes the chunks of item_table,
+    by chunks left to walk: the first chunk of each tile with the most
+    chunks first, the last chunk of every tile last. A tile's later chunks
+    so start once its earlier ones have merged their depths, and the last
+    to start are a mix of light and heavy chunks, not the heaviest tiles'
+    alone. Returns (bound,) i32 indices into item_tile, the live chunks
+    first."""
+    ntiles = item_start.shape[0] - 1
+    j = torch.arange(item_tile.shape[0], dtype=torch.int64, device=item_tile.device)
+    t = item_tile.long().clamp_max(ntiles - 1)
+    first, nch = item_start[t].long(), (item_start[t + 1] - item_start[t]).long()
+    left = nch - (j - first)  # chunks of the tile from this one on
+    key = torch.where(item_tile < ntiles, -left * ntiles + t, torch.iinfo(torch.int64).max)
+    return torch.sort(key, stable=True).indices.to(I32)
 
 
 def pack_key(z: torch.Tensor, ids: torch.Tensor, depth_test: bool) -> torch.Tensor:

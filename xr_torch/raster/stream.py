@@ -13,11 +13,17 @@ lists the work items of the kernel: each tile's walk cut into chunks of
 ``records.ITEM_RECORDS`` (``item_tile``, ``item_start``), computed on the
 device without a host read.
 
-``z_earlyout``, ``z_chunk_gate`` and ``z_band_gate`` are accepted and run
-the one fold: the reference's gates skip records whose deflated ``z_min``
-cannot win, so they never change (tid, z). The fold reads a record only
-through a live id, never an empty slot's fields (the port's empty-slot
-sentinel is the id itself).
+Under ``z_earlyout`` (with the depth test) the kernel's z gate runs: a
+warp skips a record whose deflated ``z_min`` (field 13) lies behind every
+pixel of its 32x8 footprint, its bound taken from its own depths, seeded
+from what the tile's earlier chunks merged (the prep lists the chunks
+chunk-major for it, ``item_order``); under ``z_chunk_gate`` the staging
+also drops such records from a warp's walk before it starts. The plain
+version is then the reference's serial gate, ``records.fold_plain_gated``
+(blocks of ``stream_block``, ``z_band_gate``'s 8-row bands, ``z_chunk_gate``'s
+groups of ``CHUNK_G``). No gate changes (tid, z): a skipped record cannot
+win a pixel. Both read ``z_min`` only through a live id, never an empty
+slot's fields (the port's empty-slot sentinel is the id itself).
 
 The wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel, and raises if that fails.
@@ -26,7 +32,7 @@ tensors it launches the kernel, and raises if that fails.
 from __future__ import annotations
 
 import itertools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,7 +41,10 @@ from xr_torch.core.types import RenderConfig
 from xr_torch.pipeline.geometry import MAX_FAN, TriBuf, clip_budget
 from xr_torch.raster.binning import bin_triangles, grid_dims
 from xr_torch.raster.records import (
+    CHUNK_G,
+    chunk_major_order,
     fold_plain,
+    fold_plain_gated,
     id_chunks,
     item_bound,
     item_table,
@@ -43,8 +52,6 @@ from xr_torch.raster.records import (
 )
 
 I32 = torch.int32
-
-CHUNK_G = 8  # records under one aggregate z_min in the reference's chunk gate
 
 
 def stream_blocks(config: RenderConfig, num_records: int, num_src: int = 0) -> int:
@@ -74,10 +81,17 @@ class StreamInputs(NamedTuple):
     dropped: torch.Tensor  # () i32 dropped_blocks * BLK + large_dropped
     item_tile: torch.Tensor  # (bound,) i32 tile of each chunk of the kernel's walk
     item_start: torch.Tensor  # (ntiles + 1,) i32 first chunk of each tile, then the total
+    item_order: Optional[torch.Tensor] = None  # (bound,) i32 chunk-major walk, gated only
+
+
+def gated(config: RenderConfig) -> bool:
+    """Whether the z gate runs: ``z_earlyout`` with the depth test."""
+    return config.depth_test and config.z_earlyout
 
 
 def prepare(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> StreamInputs:
-    """Bin, pack records and apply the reference's block budget."""
+    """Bin, pack records and apply the reference's block budget; under the
+    z gate, also the kernel's chunk-major walk."""
     if config.z_chunk_gate:
         assert config.stream_block % CHUNK_G == 0, "stream_block must be a CHUNK_G multiple"
     b = bin_triangles(tri, config, y_offset=y_offset)
@@ -107,14 +121,25 @@ def prepare(tri: TriBuf, config: RenderConfig, y_offset: int = 0) -> StreamInput
         dropped=(dropped_blocks * BLK + b.large_dropped).to(I32),
         item_tile=item_tile,
         item_start=item_start,
+        item_order=chunk_major_order(item_tile, item_start) if gated(config) else None,
     )
+
+
+def vis_stream_plain_gated(inp: StreamInputs, config: RenderConfig):
+    """The reference's serial z gate on the kernel's inputs
+    (``records.fold_plain_gated``). Returns (tid, z, skips)."""
+    return fold_plain_gated(inp.rec, inp.large_ids, inp.large_count, inp.sid, inp.starts,
+                            inp.run_counts, config, tile_ran=inp.tile_ran)
 
 
 def vis_stream_plain(inp: StreamInputs, config: RenderConfig):
     """Plain PyTorch version of the kernel on the same inputs: the large
     bucket, then each tile's uncapped segment, folded into every tile at
-    once; tiles outside the budget stay background. Returns (tid (H,W) i32,
-    z (H,W) f32, +inf background)."""
+    once, under the z gate the reference's serial gate; tiles outside the
+    budget stay background. Returns (tid (H,W) i32, z (H,W) f32, +inf
+    background)."""
+    if gated(config):
+        return vis_stream_plain_gated(inp, config)[:2]
     C = inp.rec.shape[0]
     zero = torch.zeros((1,), dtype=I32, device=inp.rec.device)
     chunks = itertools.chain(
@@ -135,7 +160,8 @@ def vis_stream(inp: StreamInputs, config: RenderConfig):
         inp.large_ids, inp.large_count, inp.item_tile, inp.item_start,
         height=config.height, width=config.width, tile_h=config.tile_h,
         tile_w=config.tile_w, ntx=ntx, subpixel=config.subpixel,
-        depth_test=config.depth_test,
+        depth_test=config.depth_test, item_order=inp.item_order if gated(config) else None,
+        chunk_gate=gated(config) and config.z_chunk_gate,
     )
 
 

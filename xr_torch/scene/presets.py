@@ -28,6 +28,7 @@ from xr_torch.core.types import (
     RenderConfig,
     Scene,
 )
+from xr_torch.core import math3d as m3
 from xr_torch.scene import procedural as proc
 from xr_torch.scene import texture as tx
 
@@ -68,9 +69,7 @@ def translation(v) -> np.ndarray:
 
 
 def scaling(v) -> np.ndarray:
-    v = np.asarray(v, np.float32) * np.ones(3, np.float32)
-    o, i = np.zeros((), np.float32), np.ones((), np.float32)
-    return _mat4([[v[0], o, o, o], [o, v[1], o, o], [o, o, v[2], o], [o, o, o, i]])
+    return m3.scaling(v, "cpu").numpy()
 
 
 def config1_cube() -> Preset:

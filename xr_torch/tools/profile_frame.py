@@ -30,8 +30,9 @@ CAPTURE_FILE = "capture.json"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # first match wins; names are matched lowercased
 STAGE_BUCKETS = [
-    ("vis_stream", ("<xr::streamwalk>",)),  # fold_kernel / clear_kernel of csrc/
-    ("vis_lists", ("<xr::listwalk>",)),
+    # fold_kernel, zgate_fold_kernel and clear_kernel of csrc/
+    ("vis_stream", ("<xr::streamwalk",)),
+    ("vis_lists", ("<xr::listwalk",)),
     ("copy/memcpy", ("memcpy", "memset", "copy")),
     ("sort", ("sort",)),
     ("gather/index", ("gather", "index", "scatter")),
