@@ -6,7 +6,9 @@ Phases, each of which raises on failure (exit code != 0, no final line):
   1. device: a CUDA card is required; prints nvidia-smi's name and power limit
      and reads the SM clock the integer bound is taken at
   2. build: compiles the CUDA kernels from xr_torch/csrc/ (nvcc, one process
-     per source, started together)
+     per source, started together) and prints ptxas's registers and spill
+     stores of each fold kernel (the ungated B1 and B2, the gated B1 with
+     and without z_chunk_gate), none of which may spill
      native: the host codec (xr_torch/native, g++ into build/) must build;
      the courtyard's OBJ parsed natively and by Python gives equal arrays,
      a 1920x1080 PNG written natively and by Python decodes to the same
@@ -30,7 +32,11 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      (the plain fold over 431,358 record slots is compared once and timed
      by that one call if it takes over 5 s); the stream kernel on config7's
      full frame (177,920 triangles, every capacity measured by its dry pass
-     on the card, z_earlyout on) at t = 13 and 26; the stream kernel on
+     on the card, z_earlyout on) at t = 13 and 26; the gated stream kernel
+     on the stacked planes of xr_torch/tools/layers.py at 1920x1080 (16
+     planes of config3's triangle count, each covering the frame): ids
+     front to back (layers16, also under z_chunk_gate), back to front
+     (layers16_rev) and back to front under bin_zorder; the stream kernel on
      config5's full frame in the coordinates of each band of its preset's
      four (y_offset 0, 288, 576 and 864 of 1080 rows padded to 1152: the
      records of the top of the frame lie far above the bottom band's first
@@ -38,7 +44,7 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      PyTorch (records.fold_plain_gated, whose skip counts it prints) and
      against the ungated kernel on the same inputs, then GATE_STRESS more
      launches in a row each held against the ungated kernel's bits on the
-     device (the merge order and the seeding from the scratch vary from
+     device (the merge order and the bounds the chunks share vary from
      launch to launch; a launch that differs fails the phase), and timed in
      turns with the ungated kernel (3 rounds); and both
      kernels on config4's camera pass in band 1 of 2 (y_offset 576), each
@@ -55,9 +61,11 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      gate probe: xr_torch.tools.sweep_visibility rebuilds the kernels with
      the gate's counters (-DXR_GATE_COUNTS) in a process of its own and
      prints the card's skip share of one launch on config5 (t = 3.0, also
-     under z_chunk_gate and bin_zorder), config7 (t = 26) and config3 under
-     bin_zorder + z_earlyout, beside the plain serial gate's; config5's
-     must be above 0
+     under z_chunk_gate and bin_zorder, and in each of its four bands),
+     config7 (t = 13 and 26), config3 under bin_zorder + z_earlyout and the
+     stacked-plane cases, beside the plain serial gate's; config5's must be
+     above 0, layers16's above one half, and under z_chunk_gate the staging
+     must drop records of layers16
   4. gathers: the lane gather (lane_gather, P1) at the probe's four shapes
      and the 16-channel and one-channel quad gathers (quad_gather P2,
      quad_gather1 P3) at the full 2,073,600-pixel shape, bit-exact against
@@ -313,13 +321,26 @@ def _bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
 
 
 def phase_build() -> None:
+    """Build the kernels with ptxas's report; every fold kernel must keep
+    its registers without a spill."""
+    import contextlib
+    import io
+
     from xr_torch import kernels
+    from xr_torch.tools.sweep_visibility import fold_kernels
 
     t0 = time.perf_counter()
-    path = kernels.build(verbose=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        path = kernels.build(verbose=True)
     kernels.library()
     log(f"build: {path.name} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 0.0:.2f} s)")
+    if kernels.build_seconds is not None:  # this process compiled: ptxas reported
+        folds = fold_kernels(out.getvalue())
+        log(f"build: ptxas, fold kernels (walk, gate): {folds}")
+        if len(folds) != 4 or any(v["spill_bytes"] for v in folds.values()):
+            raise AssertionError(f"build: a fold kernel spills or is missing: {folds}")
 
 
 def phase_native() -> None:
@@ -551,6 +572,7 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
     from xr_torch.app.renderer import shadow_config
     from xr_torch.dist import shard
     from xr_torch.pipeline.shadow import light_matrices_for_scene
+    from xr_torch.tools import layers
 
     errs = {"vis_stream": [], "vis_stream_zgate": [], "vis_lists": []}
 
@@ -682,9 +704,25 @@ def phase_kernel_vs_plain(dev, clock_hz) -> dict:
     # sample times of its dry pass
     for t in (13.0, 26.0):
         p, cam, scene = _setup(dev, _preset("config7", full=True), 1920, 1080, t)
-        r = run("vis_stream", p, {}, scene, cam, f"full config7 t={t}", time_it=t == 26.0)
+        r = run("vis_stream", p, {}, scene, cam, f"full config7 t={t}", time_it=True)
         if r["dropped"] or not p.config.z_earlyout or r["bg"] == 1920 * 1080:
             raise AssertionError(f"full config7 t={t}: {r}")
+    del scene
+
+    # the stacked planes of xr_torch/tools/layers.py at 1920x1080 (16
+    # planes, every one covering the frame: depth complexity 16): ids front
+    # to back (also under z_chunk_gate, whose staging drops records there),
+    # back to front, and back to front sorted again by bin_zorder
+    for name, reverse, over in (("layers16", False, {}),
+                                ("layers16 z_chunk_gate", False, {"z_chunk_gate": True}),
+                                ("layers16_rev", True, {}),
+                                ("layers16_rev bin_zorder", True, {"bin_zorder": True})):
+        p = layers.layers16(reverse)
+        cam, mm = p.animate(0.0)
+        scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), dev)
+        r = run("vis_stream", p, over, scene, cam, f"full {name}", time_it=True)
+        if r["dropped"] or r["bg"] or not p.config.z_earlyout:
+            raise AssertionError(f"full {name}: {r}")
     del scene
 
     # the bin options on config3 at golden size and in full: segments out
@@ -734,9 +772,12 @@ def phase_gate_probe() -> None:
     """The card's skip share: xr_torch.tools.sweep_visibility rebuilds the
     kernels with the gate's counters (-DXR_GATE_COUNTS, into its own
     library) in a process of its own and counts, in one launch on each
-    gated 1080p frame, the (record, warp) pairs that meet a footprint and
-    those the gate skipped; printed beside the share of records the
-    reference's serial gate skips (plain). config5's must be above 0."""
+    gated 1080p frame, the (record, warp) pairs that meet a footprint
+    inside the frame and those the gate skipped; printed beside the share
+    of records the reference's serial gate skips (plain). config5's must be
+    above 0 and layers16's above one half, and under z_chunk_gate the
+    staging must drop records of layers16 (on config5 it drops none: its
+    warps start from +inf)."""
     spec = "512,128,2,gatecounts"
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "xr_torch.tools.sweep_visibility", spec],
@@ -752,13 +793,20 @@ def phase_gate_probe() -> None:
             raise AssertionError(f"gate probe {label}: the probe build is not exact: {cell}")
         log(f"gate probe {label} (build {row['build']}): card skip share {card['skip_share']!r} "
             f"({card['skipped_in_walk']} (record, warp) pairs skipped in the walk, "
-            f"{card['dropped_at_staging']} dropped at staging, of {card['pairs']}; "
-            f"{card['seeded_chunks']} of {card['chunks']} chunks seeded); the reference's "
-            f"serial gate (plain) {plain['skip_share']!r} of {plain['walked']} records; "
-            f"probe build {cell['ms']!r} ms, ungated {cell['ungated_ms']!r} ms")
+            f"{card['dropped_at_staging']} dropped at staging, of {card['pairs']} in the "
+            f"frame; {card['bounded_starts']} of {card['warp_starts']} warps of shared tiles "
+            f"started bounded); the reference's serial gate (plain) {plain['skip_share']!r} "
+            f"of {plain['walked']} records; probe build {cell['ms']!r} ms, ungated "
+            f"{cell['ungated_ms']!r} ms")
     share = row["vis_stream config5"]["card"]["skip_share"]
     if not share > 0:
         raise AssertionError(f"gate probe: the gate skips nothing on config5 ({share})")
+    share = row["vis_stream layers16"]["card"]["skip_share"]
+    if not share > 0.5:
+        raise AssertionError(f"gate probe: the gate skips half or less of layers16 ({share})")
+    dropped = row["vis_stream layers16 z_chunk_gate=True"]["card"]["dropped_at_staging"]
+    if not dropped > 0:
+        raise AssertionError("gate probe: z_chunk_gate's staging drops nothing of layers16")
     log(f"gate probe: {time.perf_counter() - t0:.1f} s with its build; fold kernels "
         f"{row['fold_kernels']}")
 

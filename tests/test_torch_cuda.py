@@ -22,7 +22,9 @@ every device: CUDA's tan is not the CPU's), and the stream kernel under
 the z gate (z_earlyout, with z_band_gate and z_chunk_gate) against the
 reference's serial gate in plain PyTorch and against the ungated kernel,
 on config5, config7 and config3 under bin_zorder, at 8-, 64- and 128-row
-tiles and launched 300 times in a row. These
+tiles and launched 300 times in a row, and on the stacked planes of
+xr_torch/tools/layers.py; and tests/test_determinism.py's checks under the
+z gate (a frame twice, a permuted mesh, the medium bin class). These
 tests need a CUDA device and skip without one. On a machine with a card
 and no JAX, run them without the suite's conftest (which imports JAX):
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``."""
@@ -42,7 +44,7 @@ from xr_torch.pipeline.shadow import light_matrices_for_scene
 from xr_torch.raster import smem, stream
 from xr_torch.scene import presets
 from xr_torch.scene import procedural as proc
-from xr_torch.tools import gather
+from xr_torch.tools import gather, layers
 
 pytestmark = pytest.mark.cuda
 
@@ -594,3 +596,94 @@ def test_gated_kernel_any_tile_height(cuda, tile_h):
         cfg = dataclasses.replace(p.config, tile_h=tile_h, **ZGATES["band_chunk"],
                                   z_earlyout=True)
         _gated_matches(cuda, p, cam, scene, cfg)
+
+
+def _permuted(scene, perm):
+    mesh = scene.mesh
+    return scene.replace(mesh=mesh.replace(indices=mesh.indices[perm],
+                                           material_id=mesh.material_id[perm]))
+
+
+def _frames(cuda, scene, cfg, cam, n=1):
+    """n frames through Renderer on the card; the gated kernel ran in each."""
+    r = Renderer(scene, cfg, cuda)
+    n0 = kernels.launches["vis_stream_zgate"]
+    frames = [r.readback(r.step(scene, cam)) for _ in range(n)]
+    assert kernels.launches["vis_stream_zgate"] == n0 + n
+    return frames
+
+
+def _same_frame(a, b):
+    assert np.array_equal(a.color, b.color) and np.array_equal(a.depth, b.depth)
+
+
+def _near_frame(card, cpu):
+    """test_cuda_frame_equals_cpu_frame's rule: coverage equal, depth within
+    1e-6, color within 1 LSB."""
+    assert ((card.depth == 1.0) == (cpu.depth == 1.0)).all()
+    np.testing.assert_allclose(card.depth, cpu.depth, rtol=0, atol=1e-6)
+    assert np.abs(card.color.astype(int) - cpu.color.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("name", ["config3", "layers16"])
+def test_render_twice_identical_under_the_gate(cuda, name):
+    """tests/test_determinism.py on the card under z_earlyout: 20 frames of
+    one camera are the same bytes, whatever order the chunks merge and
+    publish their bounds in; and they are the CPU's frame (within the rule
+    of test_cuda_frame_equals_cpu_frame)."""
+    preset = presets.config3_terrain(48, 48) if name == "config3" else layers.layers16()
+    p, cam, scene = _scene(cuda, 0.3, preset)
+    cfg = dataclasses.replace(p.config, z_earlyout=True)
+    frames = _frames(cuda, scene, cfg, cam, n=20)
+    for f in frames[1:]:
+        _same_frame(f, frames[0])
+    cpu = convert.scene_to_torch(p.scene.replace(model_matrices=p.animate(0.3)[1]), "cpu")
+    rh = Renderer(cpu, cfg, "cpu")
+    _near_frame(frames[0], rh.readback(rh.step(cpu, cam)))
+
+
+@pytest.mark.parametrize("name", ["config3", "layers16"])
+def test_triangle_order_invariance_under_the_gate(cuda, name):
+    """A permuted mesh moves records between chunks and, under the z gate,
+    changes which (record, warp) pairs the live bounds skip: the frame's
+    bytes stay the same (no two triangles tie on z)."""
+    preset = presets.config3_terrain(48, 48) if name == "config3" else layers.layers16()
+    p, cam, scene = _scene(cuda, 0.3, preset)
+    cfg = dataclasses.replace(p.config, z_earlyout=True)
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(scene.mesh.num_triangles)).to(cuda)
+    a = _frames(cuda, scene, cfg, cam)[0]
+    b = _frames(cuda, _permuted(scene, perm), cfg, cam)[0]
+    _same_frame(a, b)
+    tri = _tri(cuda, p, cam, scene, cfg)
+    inp = stream.prepare(tri, cfg)
+    assert int(_chunks(inp).max()) >= 2
+
+
+def test_medium_bin_class_is_routing_under_the_gate(cuda):
+    """config4 at 256x128 in 16x128 tiles (the kernels' width), no shadow
+    map, binned, z_earlyout: the medium class on, off, overflowing and wide
+    give the same bytes."""
+    p, cam, scene = _scene(cuda, 0.0, presets.config4_phong())
+    p = presets.small_preset(p, 256, 128, tile_h=16, tile_w=128, bin_capacity=8192,
+                             shadow_map_size=0, raster_path="binned", z_earlyout=True)
+    frames = {name: _frames(cuda, scene, dataclasses.replace(p.config, **over), cam)[0]
+              for name, over in (("on", {}), ("off", {"medium_capacity": 0}),
+                                 ("overflowing", {"medium_capacity": 4}),
+                                 ("wide", {"medium_span": 16}))}
+    assert int(frames["off"].stats["bin_overflow"]) == 0
+    for f in frames.values():
+        _same_frame(f, frames["off"])
+
+
+@pytest.mark.parametrize("name", ["layers16", "layers16_chunk", "layers16_rev",
+                                  "layers16_rev_zorder"])
+def test_gated_kernel_on_the_stacked_planes(cuda, name):
+    """xr_torch/tools/layers.py at golden size, where the gate has most to
+    skip (ids front to back, also under z_chunk_gate, whose staging drops
+    records there, or back to front sorted again by bin_zorder) and least
+    (back to front): the gated kernel equals the serial gate and the
+    ungated kernel, 100 launches in a row."""
+    p, cam, scene = _scene(cuda, 0.0, layers.layers16(reverse=name.startswith("layers16_rev")))
+    cfg = dataclasses.replace(p.config, bin_zorder=name.endswith("zorder"),
+                              z_chunk_gate=name.endswith("chunk"))
+    _gated_matches(cuda, p, cam, scene, cfg, repeats=100)

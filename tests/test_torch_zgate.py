@@ -17,7 +17,10 @@ numpy from the reference's records and bins. The gated fold reads z_min
 only through a live id (the reference masks field 13 of empty slots where
 it means the id, ROADMAP F1): poisoning every record that no live slot
 names changes neither the frame nor the skip counts. Painter's order runs
-no gate. Also the reference's math helpers the port had lacked
+no gate. The stacked planes of ``xr_torch/tools/layers.py`` (depth
+complexity 16, ids front to back) run once, under the plain gate alone,
+where the serial gate skips most records. Also the reference's math
+helpers the port had lacked
 (``orthographic``, ``scaling``, ``transform_directions``,
 ``as_numpy_scene``), bit-equal."""
 
@@ -42,6 +45,8 @@ from xr_torch import convert, kernels
 from xr_torch.core import math3d as m3
 from xr_torch.core import types as ttypes
 from xr_torch.raster import records, stream
+
+from tests.test_torch_zgate_live import ref_layers16
 
 torch.set_num_threads(1)
 
@@ -162,6 +167,31 @@ def test_gates_skip_records(name):
     assert len(set(total.values())) == 1, got
     if name == "config5_block8":
         assert got["chunk"]["chunk"] > 0 and got["band"]["band"] > 0
+
+
+def test_layers16_gated_fold_matches_pallas_interpret():
+    """The stacked planes of xr_torch/tools/layers.py (16 planes, ids front
+    to back, depth complexity 16) at golden size under z_earlyout: the
+    reference's gated stream kernel in interpret mode against the port's
+    serial gate (ids and dropped exact, z within 1e-6, F3), which equals the
+    ungated fold bit for bit and skips most of the walked records."""
+    p = ref_presets.small_preset(ref_layers16(), W, H, bin_capacity=8192)
+    cam, mm = p.animate(0.0, np)
+    view, proj = rm3.camera_matrices(cam, W / H, np)
+    rtri = ref_geometry(p.scene.replace(model_matrices=mm), jnp.asarray(view),
+                        jnp.asarray(proj), p.config, xp=jnp)
+    assert p.config.z_earlyout
+    rt, rz, rd = _ref_visibility(rtri, p.config)
+    cfg = convert.config_from(p.config)
+    inp = stream.prepare(convert.tribuf_to_torch(rtri, "cpu"), cfg)
+    t, z, skips = stream.vis_stream_plain_gated(inp, cfg)
+    tu, zu = stream.vis_stream_plain(inp, dataclasses.replace(cfg, z_earlyout=False))
+    assert torch.equal(t, tu) and torch.equal(z.view(torch.int32), zu.view(torch.int32))
+    assert 2 * skips["record"] > skips["walked"] > 0
+    rt, rz = np.asarray(rt), np.asarray(rz)
+    assert (t.numpy() == rt).all() and int(inp.dropped) == int(rd) == 0
+    assert np.isfinite(rz).all()  # every plane covers the frame
+    np.testing.assert_allclose(z.numpy(), rz, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("name", ["config5_block8", "config3_zorder"])

@@ -59,24 +59,47 @@
 // (about 170 instructions for a record in a warp, 2.6 warps a record), so a
 // cp.async double buffer for the staging was not built.
 //
-// The z gate (template parameter kGate; B1 under z_earlyout: the zmax,
-// band_zmax and chunk options of `_raster_scalar_records`). The TPU walks a
-// tile's records in order and bounds the tile's depth once a block; here a
-// tile's chunks run at once on many SMs, and a chunk's registers start at
-// +inf, so a bound from them alone stays +inf until one chunk has covered
-// a whole footprint. So, under the gate:
-// - The prep lists the chunks chunk-major (item_order: by chunks left to
-//   walk, so a tile's chunks come in their order, the first chunks of the
-//   tiles with the most come first and every tile's last chunk comes
-//   last), and a chunk of a tile that has several seeds its registers from
-//   the key scratch, where the tile's earlier chunks have merged. Keys only
-//   go down (atomicMin), so whatever a read sees (a relaxed load: never a
-//   torn key) is the (z, id) of a merged record: a valid start. The merge
-//   then writes only the pixels the chunk improved (`won`).
-// - A warp's bound is the largest depth of its 32x8 footprint inside the
-//   frame: the counterpart of band_zmax, over one 8-row band of 32 columns.
-//   It is taken after seeding and again every kRefresh records folded (a
-//   warp max, the same in every lane, so the walk stays convergent).
+// The z gate (B1 under z_earlyout: the zmax, band_zmax and chunk options
+// of `_raster_scalar_records`), a kernel of its own (zgate_fold_kernel).
+// The TPU walks a tile's records in order and bounds the tile's depth once a
+// block. Here a tile's chunks run at once on many SMs, each from +inf, and
+// a skipped (record, warp) pair saves one record's fold in one warp (~170
+// instructions) while the gate's own work is paid by every warp of every
+// chunk: on the scenes the presets gate (config5, config7) it finds
+// almost nothing to skip, so what bounds it there is its own instructions.
+// A first design (each chunk seeded its pixels from the tile's merged
+// keys: 32 KB of reads a chunk and four more live values) cost 18 % on
+// config5 (xr_torch/tools/sweep_visibility.py, NVIDIA H100 80GB HBM3, 700
+// W). What was measured and what the design does about it:
+// - A live bound per footprint instead of seeding. One 32-bit word per
+//   (tile, slab, warp) holds the order-preserving bits (order_bits) of an
+//   upper bound of the final depth of that footprint's pixels inside the
+//   frame; the clear kernel sets it to +inf. A warp's own bound is the
+//   largest depth of its carry over those pixels (the counterpart of
+//   band_zmax over a 32x8 band): any chunk's carry lies above the merged
+//   minimum at every pixel, so its maximum bounds them all. A warp starts
+//   from the word; at a word of its mask, once it folded kRefresh records
+//   since its last bound, it takes its own bound (+inf at once while a
+//   pixel is uncovered: no shuffles), publishes it with atomicMin if below
+//   the word, and gates on the least of it and the word as read at its
+//   last refresh (a relaxed load issued then: waiting for it here cost a
+//   latency a refresh). Chunks that run at once so gate each other.
+// - The skip test costs no load a record: at each word of the mask one
+//   lane tests one record's z_min and a ballot drops those behind the
+//   bound, and only while the bound is finite.
+// - Chunks are dealt round-robin and staged by the ungated fold's own code
+//   (deal_chunk, stage_chunk). Runs of consecutive records (the XR_RUNS
+//   probe) give a tile's first chunk its nearest records and skip more
+//   where ids run front to back, but land in a few warps' footprints:
+//   1.7-1.9x the ungated time on config5.
+// - The items in the prep's chunk-major order (item_order), in a stride of
+//   the grid as the ungated fold takes them: every tile's first chunk
+//   starts before any second one. A queue of items (an atomic counter) was
+//   slower than the stride, and the structure without the tests
+//   (XR_ZG_NOGATE) is within 2 % of the ungated kernel.
+// What the gate costs now: 6-13 % where it skips almost nothing (config5,
+// config3 under bin_zorder), 1-9 % on config7, and it saves a third on
+// the stacked planes of xr_torch/tools/layers.py (depth complexity 16).
 // - kGateWalk: a warp skips a record whose z_min (field 13, deflated by 8
 //   ulps and 1e-35) exceeds its bound. Every depth the fold interpolates for
 //   the record lies above that z_min (each product and sum rounded on its
@@ -85,11 +108,14 @@
 //   mask of each warp whose bound at the chunk's start it exceeds, so that
 //   warp never reads it: the counterpart of the chunk aggregate, which on
 //   the TPU saved scalar instructions that one thread a record does not
-//   spend here.
+//   spend here. It drops only what a tile's earlier chunks published
+//   before the chunk started: 36 % of the stacked planes' (record, warp)
+//   pairs, none of config5's (its warps start from +inf), where testing
+//   each record against 16 bounds costs 8 % more than kGateWalk alone.
 // The TPU's y-band mask (`ymask`) has its counterpart in the reject by warp
-// footprint (footprint_hits). Only the stream kernel gates; kGate 0 is the
-// fold as it was. XR_GATE_COUNTS (xr_torch/tools/sweep_visibility.py only)
-// counts the (record, warp) pairs the gates skipped.
+// footprint (footprint_hits). Only the stream kernel gates. XR_GATE_COUNTS
+// (xr_torch/tools/sweep_visibility.py only) counts the (record, warp)
+// pairs of footprints inside the frame that the gates skipped.
 
 #pragma once
 
@@ -103,8 +129,9 @@ typedef unsigned long long u64;
 constexpr int kFields = 18;     // record width (xr_torch/raster/records.py)
 // The constants the design was tuned with. xr_torch/tools/sweep_visibility.py
 // rebuilds the kernels with other values (-DXR_THREADS=..., -DXR_ITEM=...,
-// -DXR_MIN_CTAS=...; exact) and with its probes: XR_RUNS (a
-// chunk is a run of consecutive records; exact), XR_GATE_COUNTS (exact) and
+// -DXR_MIN_CTAS=...; exact) and with its probes: XR_RUNS (a chunk is a run
+// of consecutive records, in both kernels; exact), XR_ZG_NOGATE (the gated
+// kernel without its tests and bounds; exact), XR_GATE_COUNTS (exact) and
 // XR_NO_FOLD, XR_NO_MERGE, XR_NO_STAGE (the pixel work, the merge or the
 // staging compiled out; these break the output and only show where the
 // time goes). Nothing else defines them.
@@ -135,11 +162,14 @@ constexpr unsigned kInfBits = 0x7f800000u;
 constexpr unsigned kNegInfBits = 0xff800000u;
 constexpr int kGateWalk = 1;   // z_earlyout: a warp skips records behind its footprint
 constexpr int kGateStage = 2;  // z_chunk_gate: the staging drops them from its walk
-constexpr int kRefresh = 8;    // records folded between two bounds
+// records a gated warp folds before it takes a new bound, at the next word
+// of its mask (records.py ZG_REFRESH)
+constexpr int kRefresh = 4;
 
 #ifdef XR_GATE_COUNTS
-// (record, warp) pairs that meet a footprint, dropped at staging, skipped
-// in the walk; chunks, chunks seeded from the scratch
+// (record, warp) pairs that meet a footprint inside the frame, dropped at
+// staging, skipped in the walk; (chunk, warp) starts of such footprints in
+// tiles of several chunks, those that found a bound below +inf published
 static __device__ unsigned long long g_gate_counts[5];
 #endif
 
@@ -266,11 +296,8 @@ __device__ __forceinline__ unsigned footprint_hits(const Frame& f, int t, int sl
   return hits;
 }
 
-// Fold the staged record R into this lane's run; with kTrack, bit k of
-// `won` is set where row k improved.
-template <bool kTrack>
-__device__ __forceinline__ void fold_record(const int* R, Run& s, int sub,
-                                            bool depth_test, unsigned& won) {
+// Fold the staged record R into this lane's run.
+__device__ __forceinline__ void fold_record(const int* R, Run& s, int sub, bool depth_test) {
   const int byp = R[16], bxp = R[17];
   const int bx0 = (bxp & 0xFFFF) - kB16;
   const int bx1 = ((bxp >> 16) & 0xFFFF) - kB16;
@@ -309,7 +336,6 @@ __device__ __forceinline__ void fold_record(const int* R, Run& s, int sub,
           if (better) {
             s.zb[k] = zf;
             s.tb[k] = id;
-            if constexpr (kTrack) won |= 1u << k;
           }
         }
       }
@@ -320,27 +346,33 @@ __device__ __forceinline__ void fold_record(const int* R, Run& s, int sub,
   }
 }
 
-// A key of the scratch while other chunks merge into it: a relaxed load at
-// device scope, which the memory model makes single-copy atomic against the
-// atomicMin of the merge (a plain load racing with it is a data race), so
-// the (z, id) read is always one that some chunk merged.
-__device__ __forceinline__ u64 load_relaxed(const u64* p) {
-  u64 v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+// The gate's bound words: a float as 32 bits whose unsigned order is the
+// float order (-inf lowest, +inf highest), so that atomicMin keeps the
+// least bound; kInfOrdered is +inf's.
+constexpr unsigned kInfOrdered = kInfBits | 0x80000000u;
+
+__device__ __forceinline__ unsigned order_bits(float z) {
+  const unsigned b = __float_as_uint(z);
+  return (b & 0x80000000u) ? ~b : b | 0x80000000u;
+}
+
+__device__ __forceinline__ float unorder_bits(unsigned o) {
+  return __uint_as_float((o & 0x80000000u) ? o & 0x7fffffffu : ~o);
+}
+
+// A bound word while other chunks lower it: a relaxed load at device scope,
+// which the memory model makes single-copy atomic against their atomicMin
+// (a plain load racing with it is a data race). Words only go down, so any
+// value read is a bound some chunk published.
+__device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p));
   return v;
 }
 
-// The warp's bound: the largest depth of its pixels inside the frame
-// (rows k < nlive of each lane), -inf if it has none; the same in every lane.
-__device__ __forceinline__ float warp_bound(const Run& s, int nlive) {
-  float m = __uint_as_float(kNegInfBits);
-#pragma unroll
-  for (int k = 0; k < kWarpRows; ++k) {
-    if (k < nlive) m = fmaxf(m, s.zb[k]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  return m;
+// Rows of this lane inside the frame.
+__device__ __forceinline__ int live_rows(const Run& s, const Frame& f) {
+  return s.col < f.width ? min(s.rows, f.height - s.row0) : 0;
 }
 
 // Write the run to the (height, width) outputs; every pixel no record won
@@ -380,207 +412,328 @@ __device__ __forceinline__ void clear_merge_state(const int* __restrict__ item_s
   }
 }
 
+// Store the run, the slab's only chunk, or merge it into the tile's keys:
+// the chunk that arrives last unpacks and stores the slab.
+__device__ __forceinline__ void finish_run(Run& s, const Frame& f, int t, int slab, int nch,
+                                           bool depth_test, u64* keys, int* arrivals,
+                                           int& s_last, int* __restrict__ tid_out,
+                                           float* __restrict__ z_out) {
+#ifdef XR_NO_MERGE
+  if (true) {
+#else
+  if (nch == 1) {  // the slab's only chunk
+#endif
+    run_store(s, f, tid_out, z_out);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kWarpRows; ++k) {
+    if (k < s.rows && s.tb[k] != (depth_test ? kBg : -1)) {
+      u64* p = keys + (size_t)(s.row0 + k) * f.pitch + s.col;
+      const u64 key = pack_key(s.zb[k], s.tb[k], depth_test);
+      if (depth_test) {
+        atomicMin(p, key);
+      } else {
+        atomicMax(p, key);
+      }
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(arrivals + t * f.nslab + slab, 1) == nch - 1;
+  }
+  __syncthreads();
+  if (s_last) {  // uniform across the CTA
+    __threadfence();
+#pragma unroll
+    for (int k = 0; k < kWarpRows; ++k) {
+      if (k < s.rows) {
+        const u64 key = __ldcg(keys + (size_t)(s.row0 + k) * f.pitch + s.col);
+        unpack_key(key, depth_test, s.tb[k], s.zb[k]);
+      }
+    }
+    run_store(s, f, tid_out, z_out);
+  }
+}
+
+// The records of chunk c of tile t's walk (the large bucket's nl chunks of
+// its L ids, then the tile's own): ids[first + r * stride] for r below the
+// count returned, 0 for a tile outside the budget. The chunk takes every
+// stride-th record of its walk, from `first`: the ids are sorted and
+// neighbours in id are neighbours on screen, so a run of consecutive
+// records would land in one warp's footprint.
+template <class Walk>
+__device__ __forceinline__ int deal_chunk(const Walk& walk, const int* large_ids, int L,
+                                          int nl, int t, int c, const int*& ids, int& first,
+                                          int& stride) {
+  int m;
+#ifndef XR_RUNS
+  if (c < nl) {
+    ids = large_ids;
+    first = c;
+    stride = nl;
+    m = (L - c + nl - 1) / nl;
+  } else {
+    int n;
+    walk.segment(t, ids, n);
+    first = c - nl;
+    stride = (n + kItem - 1) / kItem;  // chunks of the tile's own ids
+    m = stride > 0 ? (n - first + stride - 1) / stride : 0;
+  }
+#else  // the probe: chunk c is records c * kItem, c * kItem + 1, ...
+  int n = L;
+  ids = large_ids;
+  first = c * kItem;
+  if (c >= nl) {
+    walk.segment(t, ids, n);
+    first = (c - nl) * kItem;
+  }
+  stride = 1;
+  m = min(kItem, n - first);
+#endif
+  if (!walk.ran(t) || m < 0) m = 0;  // a tile outside the budget folds nothing
+  return m;
+}
+
+// Stage the chunk's m records in slab `slab` of tile t (s_rec) and give
+// each warp its mask of the records whose bbox meets its footprint
+// (s_mask), less those that keep(R, hits) clears (the z gate's staging
+// drop). Between two __syncthreads of the item. `rec` is not __restrict__
+// here and the caller's warp and lane come in: so written, the ungated
+// fold compiles to the SASS it had inline (xr_torch/tools/compare_sass.py).
+template <class Keep>
+__device__ __forceinline__ void stage_chunk(const int* rec, const int* ids,
+                                            int first, int stride, int m, const Frame& f,
+                                            int t, int slab, int (&s_rec)[kItem][kFields],
+                                            unsigned (&s_mask)[kWarps][kWords], int warp,
+                                            int lane, Keep keep) {
+#ifdef XR_NO_STAGE
+  m = 0;
+#endif
+  for (int e = threadIdx.x; e < m * (kFields / 2); e += kThreads) {
+    const int r = e / (kFields / 2);
+    const int w = e - r * (kFields / 2);
+    reinterpret_cast<int2*>(s_rec[r])[w] =
+        reinterpret_cast<const int2*>(rec + (size_t)ids[first + r * stride] * kFields)[w];
+  }
+  if (threadIdx.x < kItem) {  // whole warps: one thread a record
+    unsigned hits = 0;
+    if ((int)threadIdx.x < m) {
+      const int* R = rec + (size_t)ids[first + threadIdx.x * stride] * kFields;
+      hits = keep(R, footprint_hits(f, t, slab, R[16], R[17]));
+    }
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const unsigned b = __ballot_sync(0xffffffffu, (hits >> w) & 1u);
+      if (lane == 0) s_mask[w][warp] = b;
+    }
+  }
+}
+
 // Body of the fold kernel: this CTA's items, in a stride of the grid. Item
-// i is chunk i / nslab of the prep's table (under the gate, chunk
-// item_order[i / nslab]) in slab i % nslab of its tile. kGate: 0, or
-// kGateWalk with or without kGateStage (the depth test only).
-template <class Walk, int kGate>
+// i is chunk i / nslab of the prep's table in slab i % nslab of its tile.
+template <class Walk>
 __device__ __forceinline__ void fold_items(
     const int* __restrict__ rec, const Walk& walk,
     const int* __restrict__ large_ids, const int* __restrict__ large_count,
     const int* __restrict__ item_tile, const int* __restrict__ item_start,
-    const int* __restrict__ item_order, int item_bound, u64* keys, int* arrivals,
+    int item_bound, u64* keys, int* arrivals,
     int* __restrict__ tid_out, float* __restrict__ z_out, const Frame& f) {
-  constexpr bool kZ = kGate != 0;
   __shared__ __align__(8) int s_rec[kItem][kFields];
   __shared__ unsigned s_mask[kWarps][kWords];
   __shared__ int s_last;
-  __shared__ float s_wz[kWarps];  // the warps' bounds at the chunk's start (kGateStage)
   const bool depth_test = f.depth_test != 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int L = *large_count;
   const int nl = (L + kItem - 1) / kItem;  // chunks of the large bucket
   const int total = min(item_start[f.ntiles], item_bound) * f.nslab;
   for (int i = blockIdx.x; i < total; i += gridDim.x) {
-    int j = i / f.nslab;
+    const int j = i / f.nslab;
     const int slab = i - j * f.nslab;
-    if constexpr (kZ) j = item_order[j];
     const int t = item_tile[j];
     const int c = j - item_start[t];                    // chunk of the tile's walk
     const int nch = item_start[t + 1] - item_start[t];  // chunks of the tile
-    // the chunk takes every stride-th record of its walk, from `first`: the
-    // ids are sorted and neighbours in id are neighbours on screen, so a
-    // run of consecutive records would land in one warp's footprint
     const int* ids;
-    int first, stride, m;
-#ifndef XR_RUNS
-    if (c < nl) {
-      ids = large_ids;
-      first = c;
-      stride = nl;
-      m = (L - c + nl - 1) / nl;
-    } else {
-      int n;
-      walk.segment(t, ids, n);
-      first = c - nl;
-      stride = (n + kItem - 1) / kItem;  // chunks of the tile's own ids
-      m = stride > 0 ? (n - first + stride - 1) / stride : 0;
-    }
-#else  // the probe: chunk c is records c * kItem, c * kItem + 1, ...
-    int n = L;
-    ids = large_ids;
-    first = c * kItem;
-    if (c >= nl) {
-      walk.segment(t, ids, n);
-      first = (c - nl) * kItem;
-    }
-    stride = 1;
-    m = min(kItem, n - first);
-#endif
-    if (!walk.ran(t) || m < 0) m = 0;  // a tile outside the budget folds nothing
+    int first, stride;
+    const int m = deal_chunk(walk, large_ids, L, nl, t, c, ids, first, stride);
 
     Run s;
     run_init(s, f, t, slab);
-    float wz = 0.0f;   // the warp's bound
-    int nlive = 0;     // rows of this lane inside the frame
-    unsigned won = 0;  // rows this chunk improved
-    if constexpr (kZ) {
-      nlive = s.col < f.width ? min(s.rows, f.height - s.row0) : 0;
-      // start from what the tile's chunks have merged so far (its first
-      // chunk finds the scratch clear)
-      if (nch > 1 && c > 0) {
-#pragma unroll
-        for (int k = 0; k < kWarpRows; ++k) {
-          if (k < s.rows) {
-            unpack_key(load_relaxed(keys + (size_t)(s.row0 + k) * f.pitch + s.col), true,
-                       s.tb[k], s.zb[k]);
-          }
-        }
-      }
-      wz = warp_bound(s, nlive);
-      if constexpr ((kGate & kGateStage) != 0) {
-        if (lane == 0) s_wz[warp] = wz;
-      }
-#ifdef XR_GATE_COUNTS
-      if (threadIdx.x == 0) {
-        atomicAdd(&g_gate_counts[3], 1ull);
-        if (nch > 1 && c > 0) atomicAdd(&g_gate_counts[4], 1ull);
-      }
-#endif
-    }
 
     __syncthreads();  // the previous item's records and masks are consumed
-#ifdef XR_NO_STAGE
-    m = 0;
-#endif
-    for (int e = threadIdx.x; e < m * (kFields / 2); e += kThreads) {
-      const int r = e / (kFields / 2);
-      const int w = e - r * (kFields / 2);
-      reinterpret_cast<int2*>(s_rec[r])[w] =
-          reinterpret_cast<const int2*>(rec + (size_t)ids[first + r * stride] * kFields)[w];
-    }
-    if (threadIdx.x < kItem) {  // whole warps: one thread a record
-      unsigned hits = 0;
-      if ((int)threadIdx.x < m) {
-        const int* R = rec + (size_t)ids[first + threadIdx.x * stride] * kFields;
-        hits = footprint_hits(f, t, slab, R[16], R[17]);
-#ifdef XR_GATE_COUNTS
-        if (kZ) atomicAdd(&g_gate_counts[0], (unsigned long long)__popc(hits));
-#endif
-        if constexpr ((kGate & kGateStage) != 0) {
-          const float zmin = __int_as_float(R[13]);
-          unsigned drop = 0;
-#pragma unroll
-          for (int w = 0; w < kWarps; ++w) {
-            if (zmin > s_wz[w]) drop |= 1u << w;
-          }
-#ifdef XR_GATE_COUNTS
-          atomicAdd(&g_gate_counts[1], (unsigned long long)__popc(hits & drop));
-#endif
-          hits &= ~drop;
-        }
-      }
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const unsigned b = __ballot_sync(0xffffffffu, (hits >> w) & 1u);
-        if (lane == 0) s_mask[w][warp] = b;
-      }
-    }
+    stage_chunk(rec, ids, first, stride, m, f, t, slab, s_rec, s_mask, warp, lane,
+                [](const int*, unsigned hits) { return hits; });
     __syncthreads();
 
+    for (int q = 0; q < kWords; ++q) {
+      unsigned bits = s_mask[warp][q];
+      while (bits) {
+        const int r = q * 32 + __ffs(bits) - 1;
+        bits &= bits - 1;
+#ifdef XR_NO_FOLD
+        s.tb[0] ^= s_rec[r][14];  // keeps the walk of the masks alive
+#else
+        fold_record(s_rec[r], s, f.sub, depth_test);
+#endif
+      }
+    }
+    finish_run(s, f, t, slab, nch, depth_test, keys, arrivals, s_last, tid_out, z_out);
+  }
+}
+
+// Body of the gated fold kernel (kGate: kGateWalk, with or without
+// kGateStage; the depth test only): this CTA's items in a stride of the
+// grid, as the ungated fold takes them, item i being chunk
+// item_order[i / nslab] (the prep's chunk-major order) in slab i % nslab,
+// dealt and staged as the ungated fold deals and stages. bounds holds a
+// word per (tile, slab, warp), +inf after the clear kernel.
+template <class Walk, int kGate>
+__device__ __forceinline__ void zgate_fold_items(
+    const int* __restrict__ rec, const Walk& walk,
+    const int* __restrict__ large_ids, const int* __restrict__ large_count,
+    const int* __restrict__ item_tile, const int* __restrict__ item_start,
+    const int* __restrict__ item_order, int item_bound, u64* keys, int* arrivals,
+    unsigned* bounds, int* __restrict__ tid_out, float* __restrict__ z_out, const Frame& f) {
+  __shared__ __align__(8) int s_rec[kItem][kFields];
+  __shared__ unsigned s_mask[kWarps][kWords];
+  __shared__ int s_last;
+  __shared__ float s_wz[kWarps];  // the warps' bounds at the chunk's start (kGateStage)
+#ifdef XR_GATE_COUNTS
+  __shared__ int s_live[kWarps];  // warps whose footprint holds a pixel of the frame
+#endif
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int L = *large_count;
+  const int nl = (L + kItem - 1) / kItem;  // chunks of the large bucket
+  const int total = min(item_start[f.ntiles], item_bound) * f.nslab;
+  for (int i = blockIdx.x; i < total; i += gridDim.x) {
+    const int jt = i / f.nslab;
+    const int slab = i - jt * f.nslab;
+    const int j = item_order[jt];
+    const int t = item_tile[j];
+    const int c = j - item_start[t];                    // chunk of the tile's walk
+    const int nch = item_start[t + 1] - item_start[t];  // chunks of the tile
+    const int* ids;
+    int first, stride;
+    const int m = deal_chunk(walk, large_ids, L, nl, t, c, ids, first, stride);
+
+    Run s;
+    run_init(s, f, t, slab);
+    // the warp starts from the word its tile's chunks share (a tile of one
+    // chunk shares none), read now and used once the chunk is staged; a
+    // footprint without a pixel of the frame bounds nothing: -inf
+    unsigned* const word = bounds + ((size_t)t * f.nslab + slab) * kWarps + warp;
+    const bool shared = nch > 1;
+    unsigned seen = shared ? load_relaxed(word) : kInfOrdered;
+    const bool live = __any_sync(0xffffffffu, live_rows(s, f) > 0);
+    const float open = __uint_as_float(live ? kInfBits : kNegInfBits);
+    float wz = open;
+    if constexpr ((kGate & kGateStage) != 0) {  // the staging needs it first
+      wz = fminf(open, unorder_bits(seen));
+      if (lane == 0) s_wz[warp] = wz;
+    }
+#ifdef XR_GATE_COUNTS
+    if (lane == 0) {
+      s_live[warp] = live;
+      if (live && shared) {
+        atomicAdd(&g_gate_counts[3], 1ull);
+        if (seen != kInfOrdered) atomicAdd(&g_gate_counts[4], 1ull);
+      }
+    }
+#endif
+
+    // what the staging keeps of a record's hits: under kGateStage not the
+    // warps whose start bound it lies behind
+    auto keep = [&](const int* R, unsigned hits) {
+#ifdef XR_GATE_COUNTS
+      unsigned in_frame = 0;
+      for (int w = 0; w < kWarps; ++w) in_frame |= s_live[w] ? 1u << w : 0u;
+      atomicAdd(&g_gate_counts[0], (unsigned long long)__popc(hits & in_frame));
+#endif
+      if constexpr ((kGate & kGateStage) != 0) {
+        const float zmin = __int_as_float(R[13]);
+        unsigned drop = 0;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          if (zmin > s_wz[w]) drop |= 1u << w;
+        }
+#ifdef XR_GATE_COUNTS
+        atomicAdd(&g_gate_counts[1], (unsigned long long)__popc(hits & drop & in_frame));
+#endif
+        hits &= ~drop;
+      }
+      return hits;
+    };
+    __syncthreads();  // the start bounds are in s_wz; the previous item is consumed
+    stage_chunk(rec, ids, first, stride, m, f, t, slab, s_rec, s_mask, warp, lane, keep);
+    __syncthreads();
+
+    if constexpr ((kGate & kGateStage) == 0) wz = fminf(open, unorder_bits(seen));
+    // a new bound: the warp's own (the largest depth of its pixels inside
+    // the frame; +inf at once while one of them is uncovered), published
+    // if below the word, and the least of it and the word as read at the
+    // start or the last refresh (a load's latency would stall the warp
+    // here; the word only goes down, so a stale value is a bound too); the
+    // word is read again for the next refresh
+    auto refresh = [&]() {
+      float m = __uint_as_float(kNegInfBits);
+      const int nlive = live_rows(s, f);
+#pragma unroll
+      for (int k = 0; k < kWarpRows; ++k) {
+        if (k < nlive) m = fmaxf(m, s.zb[k]);
+      }
+      if (__any_sync(0xffffffffu, m == __uint_as_float(kInfBits))) {
+        m = __uint_as_float(kInfBits);
+      } else {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      }
+      wz = m;
+      if (shared) {
+        const unsigned own = order_bits(wz);
+        if (own < seen && lane == 0) atomicMin(word, own);
+        wz = fminf(wz, unorder_bits(seen));
+        seen = load_relaxed(word);
+      }
+    };
     int since = 0;  // records folded since the bound was taken
 #ifdef XR_GATE_COUNTS
     unsigned long long skipped = 0;
 #endif
     for (int q = 0; q < kWords; ++q) {
       unsigned bits = s_mask[warp][q];
+      if (bits == 0) continue;  // no record of this word meets the footprint
+#ifndef XR_ZG_NOGATE
+      if (since >= kRefresh) {  // a bound at a word of the walk, if enough was folded since
+        since = 0;
+        refresh();
+      }
+      if (wz != __uint_as_float(kInfBits)) {
+        // the word's records behind the bound leave the walk: one lane tests
+        // one record, the same decision in every lane
+        const unsigned drop = bits & __ballot_sync(
+            0xffffffffu, __int_as_float(s_rec[q * 32 + lane][13]) > wz);
+#ifdef XR_GATE_COUNTS
+        skipped += __popc(drop);
+#endif
+        bits &= ~drop;
+      }
+      since += __popc(bits);
+#endif
       while (bits) {
         const int r = q * 32 + __ffs(bits) - 1;
         bits &= bits - 1;
-        if constexpr ((kGate & kGateWalk) != 0) {
-          if (__int_as_float(s_rec[r][13]) > wz) {  // the same in every lane
-#ifdef XR_GATE_COUNTS
-            ++skipped;
-#endif
-            continue;
-          }
-        }
 #ifdef XR_NO_FOLD
         s.tb[0] ^= s_rec[r][14];  // keeps the walk of the masks alive
 #else
-        fold_record<kZ>(s_rec[r], s, f.sub, depth_test, won);
+        fold_record(s_rec[r], s, f.sub, true);
 #endif
-        if constexpr (kZ) {
-          if (++since == kRefresh) {
-            since = 0;
-            wz = warp_bound(s, nlive);
-          }
-        }
       }
     }
 #ifdef XR_GATE_COUNTS
-    if (kZ && lane == 0) atomicAdd(&g_gate_counts[2], skipped);
+    if (lane == 0 && live) atomicAdd(&g_gate_counts[2], skipped);
 #endif
-
-#ifdef XR_NO_MERGE
-    if (true) {
-#else
-    if (nch == 1) {  // the slab's only chunk
-#endif
-      run_store(s, f, tid_out, z_out);
-      continue;
-    }
-    // several chunks: merge the winners, and the last to arrive unpacks
-#pragma unroll
-    for (int k = 0; k < kWarpRows; ++k) {
-      // under the gate the run may start from the scratch: merge what improved
-      if (k < s.rows && (kZ ? ((won >> k) & 1u) != 0 : s.tb[k] != (depth_test ? kBg : -1))) {
-        u64* p = keys + (size_t)(s.row0 + k) * f.pitch + s.col;
-        const u64 key = pack_key(s.zb[k], s.tb[k], depth_test);
-        if (depth_test) {
-          atomicMin(p, key);
-        } else {
-          atomicMax(p, key);
-        }
-      }
-    }
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      s_last = atomicAdd(arrivals + t * f.nslab + slab, 1) == nch - 1;
-    }
-    __syncthreads();
-    if (s_last) {  // uniform across the CTA
-      __threadfence();
-#pragma unroll
-      for (int k = 0; k < kWarpRows; ++k) {
-        if (k < s.rows) {
-          const u64 key = __ldcg(keys + (size_t)(s.row0 + k) * f.pitch + s.col);
-          unpack_key(key, depth_test, s.tb[k], s.zb[k]);
-        }
-      }
-      run_store(s, f, tid_out, z_out);
-    }
+    finish_run(s, f, t, slab, nch, true, keys, arrivals, s_last, tid_out, z_out);
   }
 }
 
@@ -630,40 +783,66 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) fold_kernel(
     const int* __restrict__ item_start, int item_bound, u64* keys,
     int* arrivals, int* __restrict__ tid_out, float* __restrict__ z_out,
     Frame f) {
-  fold_items<Walk, 0>(rec, walk, large_ids, large_count, item_tile, item_start, nullptr,
-                      item_bound, keys, arrivals, tid_out, z_out, f);
+  fold_items<Walk>(rec, walk, large_ids, large_count, item_tile, item_start, item_bound,
+                   keys, arrivals, tid_out, z_out, f);
 }
 
-// The fold under the z gate: a kernel of its own, so that the ungated one
-// keeps its parameters and its code.
+// The two kernels of a launch under the z gate, kernels of their own, so
+// that the ungated ones keep their parameters and their code: the clear
+// kernel also sets every bound word to +inf.
+template <class Walk>
+__global__ void __launch_bounds__(kThreads) zgate_clear_kernel(
+    const int* __restrict__ item_start, u64* __restrict__ keys,
+    int* __restrict__ arrivals, unsigned* __restrict__ bounds, Frame f) {
+  clear_merge_state(item_start, keys, arrivals, f);
+  const int t = blockIdx.x, slab = blockIdx.y;
+  if (threadIdx.x < kWarps) {
+    bounds[((size_t)t * f.nslab + slab) * kWarps + threadIdx.x] = kInfOrdered;
+  }
+}
+
 template <class Walk, int kGate>
 __global__ void __launch_bounds__(kThreads, kMinCtas) zgate_fold_kernel(
     const int* __restrict__ rec, Walk walk, const int* __restrict__ large_ids,
     const int* __restrict__ large_count, const int* __restrict__ item_tile,
     const int* __restrict__ item_start, int item_bound, u64* keys,
     int* arrivals, int* __restrict__ tid_out, float* __restrict__ z_out,
-    Frame f, const int* __restrict__ item_order) {
-  fold_items<Walk, kGate>(rec, walk, large_ids, large_count, item_tile, item_start,
-                          item_order, item_bound, keys, arrivals, tid_out, z_out, f);
+    Frame f, const int* __restrict__ item_order, unsigned* bounds) {
+  zgate_fold_items<Walk, kGate>(rec, walk, large_ids, large_count, item_tile, item_start,
+                                item_order, item_bound, keys, arrivals, bounds, tid_out,
+                                z_out, f);
+}
+
+// Words of the gate's scratch: a bound word per (tile, slab, warp).
+inline long long zgate_words(int ntiles, int tile_h) {
+  return (long long)ntiles * ((tile_h + kSlabRows - 1) / kSlabRows) * kWarps;
 }
 
 // One visibility launch on `stream`: the clear kernel, then the fold kernel
-// with gate kGate (item_order: the chunk-major walk, under the gate only).
-// Allocates nothing. Returns the first error, or cudaErrorInvalidValue for a
-// shape the kernels do not take (f.ntiles 0, no item) or a gate without the
-// depth test or item_order.
+// with gate kGate (the depth test only; item_order: the prep's chunk-major
+// order, bounds: zgate_words(ntiles, tile_h) words of scratch, both under
+// the gate only). Allocates nothing. Returns the first error, or
+// cudaErrorInvalidValue for a shape the kernels do not take (f.ntiles 0, no
+// item) or a gate without the depth test or its inputs.
 template <class Walk, int kGate>
 inline int launch_visibility(const int* rec, const Walk& walk, const int* large_ids,
                              const int* large_count, const int* item_tile,
                              const int* item_start, const int* item_order,
-                             int item_bound, u64* keys, int* arrivals, int* tid_out,
-                             float* z_out, const Frame& f, cudaStream_t stream) {
+                             int item_bound, u64* keys, int* arrivals, unsigned* bounds,
+                             int* tid_out, float* z_out, const Frame& f,
+                             cudaStream_t stream) {
   const int grid = f.ntiles > 0 && item_bound >= f.ntiles ? fold_grid(f, item_bound) : 0;
-  if (grid <= 0 || (kGate != 0 && (!f.depth_test || item_order == nullptr))) {
+  if (grid <= 0 ||
+      (kGate != 0 && (!f.depth_test || item_order == nullptr || bounds == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  clear_kernel<Walk><<<dim3(f.ntiles, f.nslab, 1), kThreads, 0, stream>>>(
-      item_start, keys, arrivals, f);
+  if constexpr (kGate == 0) {
+    clear_kernel<Walk><<<dim3(f.ntiles, f.nslab, 1), kThreads, 0, stream>>>(
+        item_start, keys, arrivals, f);
+  } else {
+    zgate_clear_kernel<Walk><<<dim3(f.ntiles, f.nslab, 1), kThreads, 0, stream>>>(
+        item_start, keys, arrivals, bounds, f);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if constexpr (kGate == 0) {
@@ -673,7 +852,7 @@ inline int launch_visibility(const int* rec, const Walk& walk, const int* large_
   } else {
     zgate_fold_kernel<Walk, kGate><<<grid, kThreads, 0, stream>>>(
         rec, walk, large_ids, large_count, item_tile, item_start, item_bound, keys,
-        arrivals, tid_out, z_out, f, item_order);
+        arrivals, tid_out, z_out, f, item_order, bounds);
   }
   return (int)cudaGetLastError();
 }

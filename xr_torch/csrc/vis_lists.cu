@@ -40,6 +40,6 @@ extern "C" int xr_vis_lists(
   const xr::ListWalk walk = {lists, counts, cap};
   return xr::launch_visibility<xr::ListWalk, 0>(rec, walk, large_ids, large_count,
                                                item_tile, item_start, nullptr, item_bound,
-                                               keys, arrivals, tid_out, z_out, f,
+                                               keys, arrivals, nullptr, tid_out, z_out, f,
                                                (cudaStream_t)stream);
 }

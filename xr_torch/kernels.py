@@ -114,8 +114,10 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.xr_vis_stream.argtypes = [p] * 14 + [i] * 10 + [p]
+            lib.xr_vis_stream.argtypes = [p] * 15 + [i] * 10 + [p]
             lib.xr_vis_stream.restype = i
+            lib.xr_zgate_words.argtypes = [i, i]
+            lib.xr_zgate_words.restype = ctypes.c_longlong
             lib.xr_vis_lists.argtypes = [p] * 11 + [i] * 10 + [p]
             lib.xr_vis_lists.restype = i
             lib.xr_lane_gather.argtypes = [p, p, p, p, i, i, p]
@@ -190,8 +192,9 @@ def vis_stream(rec, sid, starts, run_counts, tile_ran, large_ids, large_count,
     item_start (ntiles + 1,) i32 as raster.records.item_table makes them —
     all on one CUDA device. Tiles are tile_w = 128 wide and of any height.
     With item_order ((bound,) i32, raster.records.chunk_major_order) the z
-    gate runs (the depth test only; counted as vis_stream_zgate), and with
-    chunk_gate also its drop at staging."""
+    gate runs (the depth test only; counted as vis_stream_zgate) on a
+    scratch of bound words allocated here, and with chunk_gate also its
+    drop at staging."""
     _check_tile(tile_w)
     if item_order is not None and not depth_test:
         raise ValueError("the z gate needs the depth test")
@@ -213,13 +216,17 @@ def vis_stream(rec, sid, starts, run_counts, tile_ran, large_ids, large_count,
     if item_order is not None:
         _check("item_order", item_order, torch.int32, item_tile.shape, dev)
     tid, z, keys, arrivals = _outputs(height, width, tile_h, ntx, dev)
+    # the gate's bound word per (tile, 32-row slab, warp)
+    bounds = (torch.empty((lib.xr_zgate_words(ntiles, tile_h),), dtype=torch.int32, device=dev)
+              if gate else None)
     _launch(
         "vis_stream_zgate" if gate else "vis_stream", lib.xr_vis_stream,
         rec.data_ptr(), sid.data_ptr(), starts.data_ptr(), run_counts.data_ptr(),
         tile_ran.data_ptr(), large_ids.data_ptr(), large_count.data_ptr(),
         item_tile.data_ptr(), item_start.data_ptr(),
         None if item_order is None else item_order.data_ptr(), keys.data_ptr(),
-        arrivals.data_ptr(), tid.data_ptr(), z.data_ptr(),
+        arrivals.data_ptr(), None if bounds is None else bounds.data_ptr(), tid.data_ptr(),
+        z.data_ptr(),
         ntiles, item_tile.shape[0], height, width, tile_h, tile_w, ntx, subpixel,
         int(bool(depth_test)), gate,
         torch.cuda.current_stream(dev).cuda_stream,

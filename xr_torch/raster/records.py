@@ -23,7 +23,8 @@ own ids) into chunks of ITEM_RECORDS records, fold each chunk on its own and
 merge the partial results of a tile through a packed 64-bit (z, id) key:
 ``item_table`` lists the chunks for them, ``pack_key`` / ``unpack_key`` are
 the key in plain PyTorch and ``fold_plain_items`` is that algorithm on top
-of the plain fold.
+of the plain fold (with ``gated=True``, the gated kernel's: bound words
+shared by a tile's chunks, in an interleaving a seed chooses).
 
 ``fold_plain_gated`` is the fold under the reference's z early-out
 (``z_earlyout`` and its refinements): serial in records, as the TPU kernel
@@ -44,6 +45,8 @@ from xr_torch.raster.common import BG_TRI_ID
 NFIELDS = 18
 PLAIN_CHUNK = 8  # records folded per step of the plain version
 ITEM_RECORDS = 128  # records per work item of the kernels (csrc/fold_records.cuh kItem)
+ZG_REFRESH = 4  # records a gated warp folds before a new bound (fold_records.cuh kRefresh)
+WARP_ROWS, WARP_COLS, SLAB_ROWS = 8, 32, 32  # a warp's footprint; rows an item covers
 CHUNK_G = 8  # records under one aggregate z_min in the reference's chunk gate
 _B16 = 32768
 I32, F32 = torch.int32, torch.float32
@@ -361,7 +364,7 @@ def merge_keys(a: torch.Tensor, b: torch.Tensor, depth_test: bool) -> torch.Tens
 
 
 def fold_plain_items(rec, ids, starts, n, large_ids, large_count, config: RenderConfig,
-                     tile_ran=None, seed=None):
+                     tile_ran=None, seed=None, gated=False, slots=None):
     """The kernels' work split in plain PyTorch: every tile's walk (the
     large bucket, then ids[starts[t] : starts[t] + n[t]]) is dealt
     round-robin into its chunks of at most ITEM_RECORDS (chunk c of a walk
@@ -369,7 +372,16 @@ def fold_plain_items(rec, ids, starts, n, large_ids, large_count, config: Render
     a cleared carry, and the partial results are merged through pack_key,
     in chunk order or, with a seed, in a shuffled order. Equals fold_plain
     over the same walk bit for bit. Returns (tid, z, chunks of the longest
-    walk)."""
+    walk).
+
+    gated=True is the gated kernel's split instead (``_fold_items_gated``,
+    the depth test only): each warp's walk gated by the bound words its
+    tile's chunks share, in an interleaving the seed chooses (and `slots`,
+    the items that run at once, if given). Returns (tid, z, what the gate
+    counted)."""
+    if gated:
+        return _fold_items_gated(rec, ids, starts, n, large_ids, large_count, config,
+                                 tile_ran, seed or 0, slots)
     K = ITEM_RECORDS
     C = rec.shape[0]
     L = large_count.reshape(1).to(I32)
@@ -389,3 +401,216 @@ def fold_plain_items(rec, ids, starts, n, large_ids, large_count, config: Render
         key = merge_keys(key, pack_key(zb, tb, config.depth_test), config.depth_test)
     zb, tb = unpack_key(key, config.depth_test)
     return (*_finish(zb, tb, config, tile_ran), len(items))
+
+
+def _order_bits(z: torch.Tensor) -> torch.Tensor:
+    """f32 as int64 in [0, 2**32) whose integer order is the float order
+    (the kernel's bound words, fold_records.cuh order_bits)."""
+    b = z.contiguous().view(I32).long() & 0xFFFFFFFF
+    return torch.where(b >= 2**31, b ^ 0xFFFFFFFF, b | 2**31)
+
+
+def _unorder_bits(o: torch.Tensor) -> torch.Tensor:
+    b = torch.where(o >= 2**31, o & 0x7FFFFFFF, o ^ 0xFFFFFFFF)
+    return torch.where(b >= 2**31, b - 2**32, b).to(I32).view(F32)
+
+
+def _fold_items_gated(rec, ids, starts, n, large_ids, large_count, config: RenderConfig,
+                      tile_ran, seed: int, slots=None):
+    """The gated kernel's algorithm (csrc/fold_records.cuh
+    ``zgate_fold_items``) in plain PyTorch, run as one interleaving of its
+    items that the seed chooses.
+
+    Every tile's walk (the large bucket, then its own ids; nothing for a
+    tile outside the budget) is dealt round-robin into chunks of at most
+    ITEM_RECORDS records, as fold_plain_items deals it. An item is one
+    chunk in one 32-row slab; its 16 warps own 32x8 footprints. Items start
+    in the kernel's order (``chunk_major_order``) as running ones finish,
+    at most `slots` at once (seed 0: all; else drawn from [items / 8,
+    items] unless given); at each step each warp of a running item takes
+    the next record of its walk (those whose bbox meets its footprint,
+    ``footprint_hits``) with its item's chance `pace`. A warp starts from
+    the bound word of its (tile, slab, warp) (a tile of one chunk shares
+    none) and skips a record whose z_min (field 13) exceeds its bound. When
+    its walk enters another word of 32 slots of the chunk (a word of the
+    kernel's mask) having folded ZG_REFRESH records or more since its last
+    bound, it takes its own bound (the largest depth of its pixels inside
+    the frame), publishes it to the word if lower (at the end of the step),
+    gates on the least of it and the word as the warp read it at its last
+    refresh or start, and reads the word again (as it was before the step).
+    Items merge through pack_key. Equals fold_plain over the same walk bit
+    for bit.
+
+    Returns (tid, z, counts): counts has ``pairs`` ((record, warp) pairs of
+    footprints holding a pixel of the frame), ``skipped`` (those the gate
+    skipped), ``items``, ``slots`` and ``steps``, as ints."""
+    assert config.depth_test, "the gate runs with the depth test only"
+    dev = rec.device
+    K = ITEM_RECORDS
+    nty, ntx = grid_dims(config)
+    ntiles, TH, TW, sub = nty * ntx, config.tile_h, config.tile_w, config.subpixel
+    half = sub // 2
+    nslab = -(-TH // SLAB_ROWS)
+    nwarps = (SLAB_ROWS // WARP_ROWS) * (TW // WARP_COLS)
+    C = rec.shape[0]
+    ran = torch.ones(ntiles, dtype=I32, device=dev) if tile_ran is None else tile_ran
+    L = int(large_count.reshape(()))
+    nl = -(-L // K)
+    total = int(torch.where(ran != 0, nl + -(-n // K), 0).clamp_min(1).sum())
+    item_tile, item_start = item_table(n, ran, large_count.reshape(1), total)
+    order = chunk_major_order(item_tile, item_start).long()
+
+    # items (chunk in the kernel's order, slab): tile, run of record ids
+    j = order.repeat_interleave(nslab)
+    slab = torch.arange(nslab, device=dev).repeat(total)
+    t = item_tile.long()[j]
+    c = j - item_start.long()[t]
+    nch = (item_start[1:] - item_start[:-1]).long()[t]
+    k = torch.arange(K, device=dev)
+    own = c >= nl
+    nt = n.long()[t]
+    # chunk c of a walk of nch chunks takes records c, c + nch, ...
+    first = torch.where(own, c - nl, c)
+    stride = torch.where(own, -(-nt // K), nl)
+    walk_n = torch.where(own, nt, L) - first
+    length = torch.where(stride > 0, -(-walk_n // stride.clamp_min(1)), 0)
+    length = torch.where(ran[t] != 0, length, 0).clamp(0, K)
+    at = first[:, None] + k * stride[:, None]
+
+    def pick(a, i):  # a[i], any i where a is empty
+        return a.long()[i.clamp(0, a.numel() - 1)] if a.numel() else torch.zeros_like(i)
+
+    src = torch.where(own[:, None], pick(ids, starts.long()[t][:, None] + at), pick(large_ids, at))
+    rid = torch.where(k < length[:, None], src, -1)  # (items, K)
+    nitems = rid.shape[0]
+
+    # each warp's footprint: its pixels, its rows inside the slab and the frame
+    w = torch.arange(nwarps, device=dev)
+    rg, cg = w // (TW // WARP_COLS), w % (TW // WARP_COLS)
+    slab_rows = (TH - slab * SLAB_ROWS).clamp_max(SLAB_ROWS)
+    rows = (slab_rows[:, None] - rg * WARP_ROWS).clamp(0, WARP_ROWS)  # (items, W)
+    row0 = (t // ntx * TH + slab * SLAB_ROWS)[:, None] + rg * WARP_ROWS
+    col0 = (t % ntx * TW)[:, None] + cg * WARP_COLS  # (items, W)
+    lane = torch.arange(WARP_COLS, device=dev)
+    kk = torch.arange(WARP_ROWS, device=dev)
+    col = col0[..., None, None] + lane  # (items, W, 1, 32)
+    row = row0[..., None, None] + kk[:, None]  # (items, W, 8, 1)
+    px, py = (col * sub + half).to(I32), (row * sub + half).to(I32)
+    in_run = kk[:, None] < rows[..., None, None]  # (items, W, 8, 1)
+    live_px = in_run & (row < config.height) & (col < config.width)
+    live = live_px.flatten(2).any(2)  # (items, W)
+
+    # the warps' walks: the run's records whose bbox meets the footprint
+    r = rec[rid.clamp_min(0)]
+    byp, bxp = r[..., 16].long(), r[..., 17].long()
+    bx0, bx1 = (bxp & 0xFFFF) - _B16, ((bxp >> 16) & 0xFFFF) - _B16
+    by0, by1 = (byp & 0xFFFF) - _B16, ((byp >> 16) & 0xFFFF) - _B16
+    gx0 = col0 * sub + half
+    gy0 = row0 * sub + half
+    gx1, gy1 = gx0 + (WARP_COLS - 1) * sub, gy0 + (rows - 1) * sub
+    hit = ((rid >= 0)[:, None, :] & (rows > 0)[..., None]
+           & (bx1[:, None, :] >= gx0[..., None]) & (bx0[:, None, :] <= gx1[..., None])
+           & (by1[:, None, :] >= gy0[..., None]) & (by0[:, None, :] <= gy1[..., None]))
+    walk_len = hit.sum(2)  # (items, W)
+    slot_of = torch.sort(torch.where(hit, k, K), dim=2).values  # walk order: record order
+    walk = torch.where(slot_of < K, torch.gather(rid[:, None, :].expand_as(hit), 2,
+                                                 slot_of.clamp_max(K - 1)), -1)
+    word_of = slot_of // 32  # the word of the chunk's mask each walk entry lies in
+    pairs = int((hit & live[..., None]).sum())
+
+    gen = torch.Generator().manual_seed(seed)
+    drawn = int(torch.randint(max(1, nitems // 8), nitems + 1, (1,), generator=gen))
+    slots = slots or (drawn if seed else nitems)
+    pace = (0.25 + 0.75 * torch.rand(nitems, generator=gen)).to(dev)
+    zmin_of = rec[:, 13].contiguous().view(F32)
+    inf = torch.tensor(float("inf"), device=dev)
+    zb = torch.full((nitems, nwarps, WARP_ROWS, WARP_COLS), float("inf"), device=dev)
+    tb = torch.full(zb.shape, BG_TRI_ID, dtype=I32, device=dev)
+    words = torch.full((ntiles * nslab * nwarps,), int(_order_bits(inf)), dtype=torch.int64,
+                       device=dev)
+    word = ((t * nslab + slab)[:, None] * nwarps + w)  # (items, W)
+    shared = (nch > 1)[:, None].expand(-1, nwarps)
+    wz = torch.zeros((nitems, nwarps), device=dev)
+    seen = torch.zeros((nitems, nwarps), dtype=torch.int64, device=dev)  # the word as last read
+    pos = torch.zeros((nitems, nwarps), dtype=torch.int64, device=dev)
+    since = torch.zeros_like(pos)
+    last_word = torch.zeros_like(pos)
+    skipped = 0
+    state = torch.zeros(nitems, dtype=torch.int64, device=dev)  # 0 waiting, 1 running, 2 done
+    nxt, steps = 0, 0
+
+    def warp_bound(i, ww):  # (A,) walkers -> the largest depth of their live pixels
+        z = torch.where(live_px[i, ww], zb[i, ww], -inf)
+        return z.flatten(1).amax(1)
+
+    # the tile's keys, and where each item's pixels lie in them
+    shape = (ntiles, TH, TW)
+    key = pack_key(*rc.new_carry(shape, True, dev), True).flatten()
+    trow = (slab[:, None, None, None] * SLAB_ROWS + rg[None, :, None, None] * WARP_ROWS
+            + kk[:, None])  # (items, W, 8, 1): row inside the tile
+    tcol = cg[None, :, None, None] * WARP_COLS + lane  # (1, W, 1, 32)
+    flat = ((t[:, None, None, None] * TH + trow) * TW + tcol).expand_as(zb)
+    in_run_px = in_run.expand_as(zb)
+
+    while True:
+        running = int((state == 1).sum())
+        while running < slots and nxt < nitems:  # an item starts: bound from the words
+            state[nxt] = 1
+            b = torch.where(live[nxt], inf, -inf)
+            seen[nxt] = torch.where(shared[nxt], words[word[nxt]], int(_order_bits(inf)))
+            wz[nxt] = torch.minimum(b, _unorder_bits(seen[nxt]))
+            nxt += 1
+            running += 1
+        if running == 0:
+            break
+        steps += 1
+        go = ((state == 1)[:, None] & (pos < walk_len)
+              & (torch.rand((nitems, nwarps), generator=gen).to(dev) < pace[:, None]))
+        i, ww = go.nonzero(as_tuple=True)
+        p = pos[i, ww]
+        q = word_of[i, ww, p]
+        ref = (q != last_word[i, ww]) & (since[i, ww] >= ZG_REFRESH)
+        last_word[i, ww] = q
+        if bool(ref.any()):  # a bound at the word: own, published, least with the last read
+            a, wa = i[ref], ww[ref]
+            since[a, wa] = 0
+            b = warp_bound(a, wa)
+            sh = shared[a, wa]
+            wz[a, wa] = torch.where(sh, torch.minimum(b, _unorder_bits(seen[a, wa])), b)
+            seen[a, wa] = torch.where(sh, words[word[a, wa]], seen[a, wa])
+            words.scatter_reduce_(0, word[a, wa][sh], _order_bits(b)[sh], "amin")
+        rr = walk[i, ww, p]
+        pos[i, ww] += 1
+        skip = zmin_of[rr] > wz[i, ww]
+        skipped += int((skip & live[i, ww]).sum())
+        i, ww, rr = i[~skip], ww[~skip], rr[~skip]
+        if i.numel():
+            f = rec[rr]
+            x, y = px[i, ww], py[i, ww]
+            e = [f[:, 3 * g, None, None] * x + f[:, 3 * g + 1, None, None] * y
+                 + f[:, 3 * g + 2, None, None] for g in range(3)]
+            of = f[:, 15, None, None]
+            fz = f[:, 9:13].contiguous().view(F32)
+            inv = fz[:, 3, None, None]
+            zf = ((e[0].to(F32) * inv) * fz[:, 0, None, None]
+                  + (e[1].to(F32) * inv) * fz[:, 1, None, None]
+                  ) + (e[2].to(F32) * inv) * fz[:, 2, None, None]
+            cov = ((e[0] >= (of & 1)) & (e[1] >= ((of >> 1) & 1)) & (e[2] >= ((of >> 2) & 1))
+                   & rc.depth_range_mask(zf) & in_run[i, ww])
+            idn = f[:, 14, None, None]
+            zo, to = zb[i, ww], tb[i, ww]
+            better = cov & ((zf < zo) | ((zf == zo) & (idn < to)))
+            zb[i, ww] = torch.where(better, zf, zo)
+            tb[i, ww] = torch.where(better, idn, to)
+            since[i, ww] += 1
+        done = (state == 1) & (pos >= walk_len).all(1)
+        state[done] = 2
+        if bool(done.any()):  # merge through the keys
+            d = done.nonzero().flatten()
+            m = in_run_px[d]
+            key.scatter_reduce_(0, flat[d][m], pack_key(zb[d], tb[d], True)[m], "amin")
+
+    zf, tf = unpack_key(key.reshape(shape), True)
+    counts = {"pairs": pairs, "skipped": skipped, "items": nitems, "slots": slots,
+              "steps": steps}
+    return (*_finish(zf, tf, config, tile_ran), counts)

@@ -15,10 +15,12 @@ device without a host read.
 
 Under ``z_earlyout`` (with the depth test) the kernel's z gate runs: a
 warp skips a record whose deflated ``z_min`` (field 13) lies behind every
-pixel of its 32x8 footprint, its bound taken from its own depths, seeded
-from what the tile's earlier chunks merged (the prep lists the chunks
-chunk-major for it, ``item_order``); under ``z_chunk_gate`` the staging
-also drops such records from a warp's walk before it starts. The plain
+pixel of its 32x8 footprint, by a bound of the footprint that the tile's
+chunks share while they run; the prep lists the chunks chunk-major
+(``item_order``) so that every tile's first chunk starts first
+(``records.fold_plain_items(gated=True)`` is that algorithm in plain
+PyTorch); under ``z_chunk_gate`` the staging also drops such records from
+a warp's walk before it starts. The plain
 version is then the reference's serial gate, ``records.fold_plain_gated``
 (blocks of ``stream_block``, ``z_band_gate``'s 8-row bands, ``z_chunk_gate``'s
 groups of ``CHUNK_G``). No gate changes (tid, z): a skipped record cannot

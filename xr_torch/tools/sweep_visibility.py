@@ -8,23 +8,29 @@ queued behind 20 ms of spinning on the device: the stream kernel on config3,
 the list kernel on config2 and the stream kernel on config4's shadow pass
 and camera pass (t = 0.3); and the z gate: the stream kernel on config5
 (t = 3.0) without it, with it (the preset's ``z_earlyout``), under
-``z_chunk_gate`` and under ``bin_zorder``, on config7 (t = 26.0) and on
-config3 under ``bin_zorder`` and ``z_earlyout``, each gated case in turns
-with the ungated kernel on the same inputs.
+``z_chunk_gate`` and under ``bin_zorder``, on config5 in each of its
+preset's four bands, on config7 (t = 13.0 and 26.0), on config3 under
+``bin_zorder`` and ``z_earlyout``, and on the depth-complexity cases of
+``xr_torch/tools/layers.py``: ``layers16`` (16 planes, ids front to back),
+``layers16`` under ``z_chunk_gate``, ``layers16_rev`` (back to front)
+and ``layers16_rev`` under ``bin_zorder``; each gated case in turns with
+the ungated kernel on the same inputs (3 rounds).
 
 A variant is threads per CTA, records per work item, CTAs an SM must hold
-(which caps the registers), and options. Exact: ``runs`` deals a
-tile's records to its chunks as runs of consecutive records;
-``gatecounts`` builds the gate's probe (``-DXR_GATE_COUNTS``, slower),
-which counts the (record, warp) pairs that meet a footprint and those the
-gate skipped, so that each gated case reports the card's skip share of one
-launch beside the share of records the reference's serial gate skips in
-the plain version (``records.fold_plain_gated``). Not exact: ``nofold``,
-``nomerge`` and ``nostage`` compile the pixel work, the merge or the
-staging out, which shows where the time goes. Each line names its build's
-flags, says whether the output matched the plain version (and, gated, the
-ungated kernel) and what ptxas reported for each fold kernel. A line of
-one variant:
+(which caps the registers), and options. Exact: ``runs`` deals a tile's
+records to its chunks as runs of consecutive records (both kernels);
+``nogate`` compiles the gated kernel's tests and bounds out (what the rest
+of its structure costs); ``gatecounts`` builds the gate's probe
+(``-DXR_GATE_COUNTS``, slower), which counts the (record, warp) pairs that
+meet a footprint inside the frame and those the gate skipped (dropped at
+staging, skipped in the walk), so that each gated case reports the card's
+skip share of one launch beside the share of records the reference's
+serial gate skips in the plain version (``records.fold_plain_gated``).
+Not exact: ``nofold``, ``nomerge`` and ``nostage`` compile the pixel work,
+the merge or the staging out, which shows where the time goes. Each line
+names its build's flags, says whether the output matched the plain version
+(and, gated, the ungated kernel) and what ptxas reported for each fold
+kernel. A line of one variant:
 
     python -m xr_torch.tools.sweep_visibility 512,128,2,gatecounts
 """
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import re
@@ -43,27 +50,38 @@ import torch
 
 VARIANTS = (
     "256,128,1,runs", "256,128,1", "512,128,2", "512,128,1", "1024,128,1", "512,64,2",
-    "512,256,2", "512,128,2,gatecounts",
-    "512,128,2,nofold", "512,128,2,nomerge", "512,128,2,nofold,nomerge",
+    "512,256,2", "512,128,2,gatecounts", "512,128,2,nogate", "512,128,2,nofold",
+    "512,128,2,nomerge", "512,128,2,nofold,nomerge",
     "512,128,2,nofold,nomerge,nostage", "512,128,2",
 )
-# (kernel, preset, shadow pass, t, config overrides)
+# (kernel, preset, shadow pass, t, config overrides; "band": b of the
+# preset's num_shards)
 CASES = (("vis_stream", "config3", False, 0.3, {}), ("vis_lists", "config2", False, 0.3, {}),
          ("vis_stream", "config4", True, 0.3, {}), ("vis_stream", "config4", False, 0.3, {}),
          ("vis_stream", "config5", False, 3.0, {"z_earlyout": False}),
          ("vis_stream", "config5", False, 3.0, {}),
          ("vis_stream", "config5", False, 3.0, {"z_chunk_gate": True}),
          ("vis_stream", "config5", False, 3.0, {"bin_zorder": True}),
+         *(("vis_stream", "config5", False, 3.0, {"band": b}) for b in range(4)),
+         ("vis_stream", "config7", False, 13.0, {}),
          ("vis_stream", "config7", False, 26.0, {}),
-         ("vis_stream", "config3", False, 0.3, {"bin_zorder": True, "z_earlyout": True}))
-OPTIONS = {"runs": "-DXR_RUNS", "gatecounts": "-DXR_GATE_COUNTS", "nofold": "-DXR_NO_FOLD",
-           "nomerge": "-DXR_NO_MERGE", "nostage": "-DXR_NO_STAGE"}
+         ("vis_stream", "config3", False, 0.3, {"bin_zorder": True, "z_earlyout": True}),
+         ("vis_stream", "layers16", False, 0.0, {}),
+         ("vis_stream", "layers16", False, 0.0, {"z_chunk_gate": True}),
+         ("vis_stream", "layers16_rev", False, 0.0, {}),
+         ("vis_stream", "layers16_rev", False, 0.0, {"bin_zorder": True}))
+OPTIONS = {"runs": "-DXR_RUNS", "nogate": "-DXR_ZG_NOGATE", "gatecounts": "-DXR_GATE_COUNTS",
+           "nofold": "-DXR_NO_FOLD", "nomerge": "-DXR_NO_MERGE", "nostage": "-DXR_NO_STAGE"}
 BROKEN = ("nofold", "nomerge", "nostage")
 
 
+@functools.lru_cache(maxsize=None)
 def _preset(name):
     from xr_torch.scene import presets
+    from xr_torch.tools import layers
 
+    if name.startswith("layers16"):
+        return layers.layers16(reverse=name.endswith("_rev"))
     if name == "config3":
         return presets.config3_terrain()
     if name == "config5":
@@ -78,6 +96,7 @@ def _inputs(dev, kernel, name, shadow, t=0.3, over=None):
     from xr_torch import convert
     from xr_torch.app.renderer import shadow_config, visible_triangles
     from xr_torch.core import math3d as m3
+    from xr_torch.dist import shard
     from xr_torch.pipeline.geometry import clip_capacity
     from xr_torch.pipeline.shadow import light_matrices_for_scene
     from xr_torch.raster import smem, stream
@@ -85,7 +104,9 @@ def _inputs(dev, kernel, name, shadow, t=0.3, over=None):
     p = _preset(name)
     cam, mm = p.animate(t)
     scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), dev)
-    cfg = dataclasses.replace(p.config, **(over or {}))
+    over = dict(over or {})
+    band = over.pop("band", None)
+    cfg = dataclasses.replace(p.config, **over)
     if shadow:
         cfg = shadow_config(cfg)
         view_proj = tuple(convert.tensor(m, dev) for m in light_matrices_for_scene(scene))
@@ -98,7 +119,15 @@ def _inputs(dev, kernel, name, shadow, t=0.3, over=None):
         "vis_stream": (stream.prepare, stream.vis_stream, stream.vis_stream_plain),
         "vis_lists": (smem.prepare_lists, smem.vis_lists, smem.vis_lists_plain),
     }[kernel]
-    return prepare(tri, cfg), cfg, launch, plain
+    y_offset = 0
+    if band is not None:  # the full frame's geometry, the band's visibility
+        _, hb, cfg = shard.band_config(cfg, cfg.num_shards)
+        y_offset = band * hb
+    inp = prepare(tri, cfg, y_offset)
+    if int(tri.overflow) or int(inp.dropped):
+        raise RuntimeError(f"{name}: {int(tri.overflow)} triangles past the clip budget, "
+                           f"{int(inp.dropped)} records dropped")
+    return inp, cfg, launch, plain
 
 
 def _same(a, b) -> bool:
@@ -106,7 +135,7 @@ def _same(a, b) -> bool:
                                                    b[1].view(torch.int32))
 
 
-def _fold_kernels(log: str) -> dict:
+def fold_kernels(log: str) -> dict:
     """ptxas's registers and spill stores of each fold kernel (by its
     mangled name: the walk, then the gate, 0 for fold_kernel), from a
     verbose build."""
@@ -131,9 +160,9 @@ def gate_counts(lib) -> dict:
     torch.cuda.synchronize()
     if lib.xr_gate_counts(ctypes.addressof(buf)):
         raise RuntimeError("xr_gate_counts failed")
-    hits, dropped, skipped, chunks, seeded = buf
+    hits, dropped, skipped, starts, bounded = buf
     return {"pairs": hits, "dropped_at_staging": dropped, "skipped_in_walk": skipped,
-            "chunks": chunks, "seeded_chunks": seeded,
+            "warp_starts": starts, "bounded_starts": bounded,
             "skip_share": (dropped + skipped) / hits if hits else 0.0}
 
 
@@ -154,7 +183,7 @@ def run_variant(spec: str) -> dict:
     dev = torch.device("cuda", 0)
     # a variant built before (the same flags) prints nothing
     row = {"variant": spec, "build": " ".join(f for f in kernels.NVCC_FLAGS if f.startswith("-D")),
-           "fold_kernels": _fold_kernels(log.getvalue())}
+           "fold_kernels": fold_kernels(log.getvalue())}
     probe = "gatecounts" in opts
     for kernel, name, shadow, t, over in CASES:
         inp, cfg, launch, plain = _inputs(dev, kernel, name, shadow, t, over)
@@ -163,7 +192,7 @@ def run_variant(spec: str) -> dict:
             gate_counts(kernels.library())  # clears the counters
         got = launch(inp, cfg)
         label = f"{kernel} {name}{' shadow pass' if shadow else ''}" + "".join(
-            f" {k}={v}" for k, v in over.items())
+            f" {k}={v}" for k, v in over.items()) + (f" t={t}" if name == "config7" else "")
         cell = {}
         if probe and gated:
             cell["card"] = gate_counts(kernels.library())
@@ -184,11 +213,12 @@ def run_variant(spec: str) -> dict:
         if gated:
             fns.append(lambda: launch(inp, ungated))
         times = [[] for _ in fns]
-        for k in ((0, 1, 1, 0) if gated else (0,)):
+        for k in ((0, 1) * 3 if gated else (0,)):
             times[k].append(timing.device_ms(fns[k], reps=50, warmup=3)[0])
         cell["ms"] = sum(times[0]) / len(times[0])
         if gated:
             cell["ungated_ms"] = sum(times[1]) / len(times[1])
+            cell["turns"] = times
         row[label] = cell
     return row
 
