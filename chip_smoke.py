@@ -106,7 +106,13 @@ Phases, each of which raises on failure (exit code != 0, no final line):
        config4's cameras: no blend overflow, config4's depth, other colors;
        the blend stage's device time beside that of the composite that
        ran all its chunks (127.686 ms, another call; PERF.md), and the
-       chunks the composite runs in each frame (ceil(n_live / blend_chunk))
+       chunks the composite runs in each frame (ceil(count / blend_chunk));
+       then the cropped composite (each live chunk on its live slots over
+       its screen box) against the whole-frame composite on all slots
+       (_plain_composite, the composite before the crop) at five of the
+       benchmark cell's t, unbanded and in each of 4 bands: the same f32
+       bytes, else the phase fails; each frame's live slots and box share,
+       and the two composites' device ms and memory, in turns
      - config6 (the courtyard loaded from its OBJ, MTL and PNG files, Phong
        with a 1024x1024 shadow map, a ragged texture pyramid, one clamped
        map) at 1920x1080, 30 frames, the stream kernel twice a frame; then
@@ -1171,6 +1177,7 @@ def phase_main_path(dev) -> dict:
     log(f"config4b blend stage: {stages['blend']:.3f} ms device time at t=0.3 (the composite "
         "that ran all its chunks: 127.686 ms, in another call); chunks run per frame "
         f"{_blend_chunks(p, scene, cams)} of {-(-p.config.blend_capacity // p.config.blend_chunk)}")
+    _blend_crop_check(dev, p, scene)
 
     # screen bands on the shadow-mapped frames: config4 (both backends) in
     # two bands, config4b in four, every band on this card; the unbanded
@@ -1286,9 +1293,9 @@ def phase_main_path(dev) -> dict:
 
 
 def _blend_chunks(p, scene, cams) -> list:
-    """The chunks the blend composite runs in each camera's frame:
-    ceil(n_live / blend_chunk), n_live read as the composite reads it
-    (xr_torch.shading.blend.live_records)."""
+    """The chunks the blend composite runs in each camera's frame: one per
+    live chunk (ceil(count / blend_chunk)), read as the composite reads
+    them (xr_torch.shading.blend.live_records)."""
     from xr_torch.app import renderer
     from xr_torch.shading import blend
 
@@ -1297,9 +1304,128 @@ def _blend_chunks(p, scene, cams) -> list:
     for cam in cams:
         _, view, proj = renderer.camera_matrices(scene, cam, cfg)
         tri, _ = renderer.visible_triangles(scene, view, proj, cfg, cap)
-        out.append(-(-blend.live_records(tri, scene, cfg) // min(cfg.blend_chunk,
-                                                                 cfg.blend_capacity)))
+        out.append(len(blend.live_records(tri, scene, cfg).boxes))
     return out
+
+
+def _plain_composite(color, depth, tri, scene, config, eye, shadow_depth=None,
+                     light_viewproj=None, y_offset=0):
+    """The blend composite as it ran before the crop: every live chunk on
+    all blend_chunk slots over the whole frame (or band), each slot
+    composited with a whole-frame torch.where; the plain version the
+    cropped composite is held to."""
+    from xr_torch.core import fixedpoint as fp
+    from xr_torch.raster import common as rc
+    from xr_torch.shading import blend
+
+    H, W = depth.shape
+    cap = config.blend_capacity
+    ch = min(config.blend_chunk, cap)
+    nchunks = -(-cap // ch)
+    alpha = blend.material_alpha(scene)
+    tmask = blend.transparent_mask(tri, scene)
+    ids, total = blend._src_ordered_ids(tri, tmask, cap)
+    overflow = torch.clamp_min(total - cap, 0).to(torch.int32)
+    px, py = rc.pixel_grids(W, H, config.subpixel, depth.device)
+    py = py + y_offset * config.subpixel
+    slot_valid = torch.arange(nchunks * ch, device=depth.device) < torch.clamp_max(total, cap)
+    ids = torch.cat([ids, ids.new_zeros(nchunks * ch - cap)]).long()
+    eye = torch.as_tensor(eye, dtype=torch.float32, device=depth.device)
+    n_live = int(torch.clamp_max(tmask.sum(), cap))
+    for c in range(-(-n_live // ch)):
+        sl = ids[c * ch : (c + 1) * ch]
+        ok = slot_valid[c * ch : (c + 1) * ch]
+        xs = tri.xs[sl][:, None, None, :]
+        ys = tri.ys[sl][:, None, None, :]
+        cov, (e0, e1, e2) = fp.coverage(xs, ys, px[None], py[None])
+        zf = rc.fragment_depth(e0, e1, e2, tri.z[sl][:, None, None, :])
+        mask = cov & rc.depth_range_mask(zf) & ok[:, None, None] & (zf < depth[None])
+        frag = blend._fragment_colors(tri, sl, scene, config, eye, e0, e1, e2, mask,
+                                      shadow_depth, light_viewproj)
+        a = alpha[tri.mat_id[sl].long()]
+        for j in range(ch):
+            color = torch.where(mask[j][..., None], color * (1.0 - a[j]) + frag[j] * a[j], color)
+    return color, overflow
+
+
+BLEND_CROP_TIMES = (0.05, 3.0, 6.05, 9.0, 16.0)  # inside config4b_1080p's frames
+
+
+def _blend_crop_check(dev, p, scene) -> None:
+    """The cropped blend composite (live slots, their screen box) against
+    the whole-frame composite on all slots (_plain_composite) at
+    BLEND_CROP_TIMES, unbanded and in 4 bands: the same f32 bytes, else
+    the run fails. Logs each frame's live slots and the box's share of the
+    frame (of the band), and the two composites' device ms at the first
+    time, in turns."""
+    from xr_torch.app import renderer
+    from xr_torch.dist import shard
+    from xr_torch.pipeline.shadow import light_matrices_for_scene
+    from xr_torch.raster import dispatch
+    from xr_torch.shading import blend
+
+    cfg = p.config
+    cap = _capacity(scene, cfg)
+    light = light_matrices_for_scene(scene)
+    shadow, _ = renderer.shadow_pass(scene, cfg, *light, cap)
+    n = 4
+    _, hb, band = shard.band_config(cfg, n)
+
+    def same(label, got, want):
+        if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and int(got[1]) == int(want[1])):
+            bad = int((got[0] != want[0]).any(-1).sum())
+            raise AssertionError(f"config4b {label}: the cropped composite differs from the "
+                                 f"whole-frame one at {bad} pixels")
+
+    def share(live, rows, width):
+        area = 0
+        for y0, y1, x0, x1 in live.boxes:
+            x0, x1 = blend._columns(x0, x1, width)
+            area += max(min(y1, rows.stop) - max(y0, rows.start), 0) * max(x1 - x0, 0)
+        return area / ((rows.stop - rows.start) * width)
+
+    for t in BLEND_CROP_TIMES:
+        cam = p.animate(t)[0]
+        c, view, proj = renderer.camera_matrices(scene, cam, cfg)
+        tri, tid, depth, _ = renderer.depth_pass(scene, view, proj, cfg, cap)
+        rgb = renderer.shade(tri, tid, scene, cfg, c.eye, shadow)
+        live = blend.live_records(tri, scene, cfg)
+        args = (rgb, depth, tri, scene, cfg, c.eye)
+        same(f"t={t}", blend.composite_transparent(*args, **shadow), _plain_composite(*args, **shadow))
+        shares = []
+        vis_tri = tri.replace(valid=blend.opaque_valid(tri, scene))
+        for b in range(n):
+            yo = b * hb
+            btid, bz, _ = dispatch.visibility(vis_tri, band, cap, y_offset=yo)
+            bdepth = torch.where(torch.isinf(bz), 1.0, bz)
+            brgb = renderer.shade(tri, btid, scene, band, c.eye, shadow, None, bdepth, yo)
+            bargs = (brgb, bdepth, tri, scene, band, c.eye)
+            same(f"t={t} band {b} of {n}",
+                 blend.composite_transparent(*bargs, y_offset=yo, live=live, **shadow),
+                 _plain_composite(*bargs, y_offset=yo, **shadow))
+            shares.append(share(live, range(yo, yo + hb), cfg.width))
+        log(f"config4b blend crop t={t}: {live.count} live slots, boxes {live.boxes}, "
+            f"{share(live, range(cfg.height), cfg.width):.4f} of the frame; bands of {hb} rows: "
+            + ", ".join(f"{s:.4f}" for s in shares) + "; equal to the whole-frame composite's "
+            "f32 bytes, unbanded and in every band")
+        if t == BLEND_CROP_TIMES[0]:
+            crop = lambda: blend.composite_transparent(*args, **shadow)  # noqa: E731
+            plain = lambda: _plain_composite(*args, **shadow)  # noqa: E731
+            ms = {"plain": [], "crop": []}
+            for k in ("plain", "crop", "crop", "plain"):
+                ms[k].append(cuda_ms(crop if k == "crop" else plain, 10))
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            crop()
+            peak_crop = torch.cuda.max_memory_allocated(dev) - base
+            torch.cuda.reset_peak_memory_stats(dev)
+            plain()
+            peak_plain = torch.cuda.max_memory_allocated(dev) - base
+            log(f"config4b blend composite t={t} (CUDA events, 10 calls, in turns plain, crop, "
+                f"crop, plain): cropped {ms['crop'][0]:.3f} / {ms['crop'][1]:.3f} ms, "
+                f"whole frame {ms['plain'][0]:.3f} / {ms['plain'][1]:.3f} ms; memory above "
+                f"its inputs {peak_crop / 2**20:.1f} against {peak_plain / 2**20:.1f} MiB")
 
 
 def _same_bytes(label, banded, unbanded) -> None:

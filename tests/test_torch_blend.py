@@ -15,9 +15,17 @@ on the CPU, against the reference on the same numpy inputs:
   transparent fragments as on the reference's;
 - dead chunks are skipped as the reference skips them: the composite runs
   ceil(min(total, blend_capacity) / blend_chunk) chunks (config4b: 1 of 4,
-  also in each of four bands, whose count is read once for all of them),
-  none when every transparent triangle is culled, all of them past
-  blend_capacity; each frame within the rule above against the reference.
+  on its 4 live slots over a box smaller than the frame; in four bands
+  only in the bands that box reaches, the count and boxes read once for
+  all of them), none when every transparent triangle is culled, all of
+  them past blend_capacity; each frame within the rule above against the
+  reference;
+- the cropped composite (live slots, their screen box) equals, bit for
+  bit, the whole-frame composite on all slots of each live chunk
+  (_plain_composite, the composite as it ran before the crop): config4b at
+  five t, in four bands (a pane across a band edge, bands no pane
+  reaches), a pane cut by the frame's edge, one chunk a record, a live
+  record whose box holds no pixel centre, and past blend_capacity.
 """
 
 import dataclasses
@@ -39,8 +47,13 @@ from xr.scene import procedural as rproc
 from xr.scene import texture as rtx
 from xr_torch import Renderer, ShardedRenderer, convert, kernels
 from xr_torch.app import renderer
+from xr_torch.core import fixedpoint as fp
 from xr_torch.core import math3d as m3
-from xr_torch.pipeline.geometry import geometry
+from xr_torch.dist import shard
+from xr_torch.pipeline.geometry import clip_capacity, geometry
+from xr_torch.pipeline.shadow import light_matrices_for_scene
+from xr_torch.raster import common as rc
+from xr_torch.raster import dispatch
 from xr_torch.scene import presets
 from xr_torch.shading import blend
 
@@ -230,14 +243,17 @@ def test_textured_shadowed_pane_matches_reference():
     assert (np.abs(_port(plain, cam, cfg).color.astype(int) - got.color.astype(int)) > 3).sum() > 300
 
 
-def _count_chunks(monkeypatch):
+def _count_chunks(monkeypatch, shapes=None):
     """Counts of the composite's chunks (its _fragment_colors calls) and of
-    its host reads of the live slot count."""
+    its host reads of the live slot count; shapes, if given, gets each
+    chunk's (slots, rows, columns)."""
     calls = {"chunks": 0, "reads": 0}
     frag, live = blend._fragment_colors, blend.live_records
 
     def counted_frag(*a, **k):
         calls["chunks"] += 1
+        if shapes is not None:
+            shapes.append(tuple(a[6].shape))  # e0: (slots, rows, columns)
         return frag(*a, **k)
 
     def counted_live(*a, **k):
@@ -260,6 +276,17 @@ def _live_chunks(scene_np, cam, cfg):
     return -(-min(total, cfg.blend_capacity) // ch), -(-cfg.blend_capacity // ch)
 
 
+def _pixel_rows(scene_np, cam, cfg):
+    """The half-open rows [y0, y1) of the pixel centres within the snapped
+    y extent of the transparent records, from the port's geometry."""
+    scene = convert.scene_to_torch(scene_np, "cpu")
+    _, view, proj = renderer.camera_matrices(scene, cam, cfg)
+    tri = geometry(scene, view, proj, cfg)
+    ys = tri.ys[blend.transparent_mask(tri, scene)]
+    sub, half = cfg.subpixel, cfg.subpixel // 2
+    return -((half - int(ys.min())) // sub), (int(ys.max()) - half) // sub + 1
+
+
 def _check_rule(got, ref, scene, cam, cfg, stats=True):
     """The shadow-flip rule of check_reference, stats equal (stats=False: a
     banded frame, whose pixel counts take the padded height)."""
@@ -280,13 +307,21 @@ def test_config4b_runs_only_its_live_chunks(monkeypatch, bands):
     scene = p.scene.replace(model_matrices=mm)
     live, held = _live_chunks(scene, cam, convert.config_from(p.config))
     assert (live, held) == (1, 4)
-    calls = _count_chunks(monkeypatch)
+    shapes = []
+    calls = _count_chunks(monkeypatch, shapes)
     st = convert.scene_to_torch(scene, "cpu")
     cfg = convert.config_from(p.config)
     r = Renderer(st, cfg, "cpu") if bands == 1 else ShardedRenderer(st, cfg, devices=["cpu"])
     got = r.readback(r.step(st, cam))
-    # each band composites the live chunk; the count is read once a device
-    assert calls == {"chunks": bands * live, "reads": 1}
+    # the live chunk runs in each band its records' rows reach (config4b's
+    # panes: 2 of the 4 bands of 64 rows); the count is read once a device
+    _, hb, _ = shard.band_config(cfg, bands)
+    y0, y1 = _pixel_rows(scene, cam, cfg)
+    reached = sum(y0 < (b + 1) * hb and y1 > b * hb for b in range(bands))
+    assert reached == (1 if bands == 1 else 2)
+    assert calls == {"chunks": reached * live, "reads": 1}
+    # on its 4 live slots of 8, over a box smaller than the frame (band)
+    assert all(k == 4 and h * w < cfg.width * min(hb, cfg.height) for k, h, w in shapes)
     rr = RefRenderer(scene, p.config)  # which ignores num_shards
     _check_rule(got, rr.readback(rr.step(scene, cam)), scene, cam, p.config, stats=bands == 1)
 
@@ -331,3 +366,163 @@ def test_over_capacity_runs_every_chunk_and_reports_overflow(monkeypatch):
     ref = r.readback(r.step(scene, cam), strict=False)
     assert int(got.stats["blend_overflow"]) == 2
     _check_rule(got, ref, scene, cam, p.config)
+
+
+def _plain_composite(color, depth, tri, scene, config, eye, shadow_depth=None,
+                     light_viewproj=None, y_offset=0):
+    """The composite as it ran before the crop, the plain version the
+    cropped one is held to: every live chunk on all blend_chunk slots over
+    the whole frame (band), each slot composited by a whole-frame
+    torch.where."""
+    H, W = depth.shape
+    cap = config.blend_capacity
+    ch = min(config.blend_chunk, cap)
+    nchunks = -(-cap // ch)
+    alpha = blend.material_alpha(scene)
+    tmask = blend.transparent_mask(tri, scene)
+    ids, total = blend._src_ordered_ids(tri, tmask, cap)
+    overflow = torch.clamp_min(total - cap, 0).to(torch.int32)
+    px, py = rc.pixel_grids(W, H, config.subpixel, depth.device)
+    py = py + y_offset * config.subpixel
+    slot_valid = torch.arange(nchunks * ch) < torch.clamp_max(total, cap)
+    ids = torch.cat([ids, ids.new_zeros(nchunks * ch - cap)]).long()
+    eye = torch.as_tensor(eye, dtype=torch.float32)
+    n_live = int(torch.clamp_max(tmask.sum(), cap))
+    for c in range(-(-n_live // ch)):
+        sl = ids[c * ch : (c + 1) * ch]
+        ok = slot_valid[c * ch : (c + 1) * ch]
+        xs = tri.xs[sl][:, None, None, :]
+        ys = tri.ys[sl][:, None, None, :]
+        cov, (e0, e1, e2) = fp.coverage(xs, ys, px[None], py[None])
+        zf = rc.fragment_depth(e0, e1, e2, tri.z[sl][:, None, None, :])
+        mask = cov & rc.depth_range_mask(zf) & ok[:, None, None] & (zf < depth[None])
+        frag = blend._fragment_colors(tri, sl, scene, config, eye, e0, e1, e2, mask,
+                                      shadow_depth, light_viewproj)
+        a = alpha[tri.mat_id[sl].long()]
+        for j in range(ch):
+            color = torch.where(mask[j][..., None], color * (1.0 - a[j]) + frag[j] * a[j], color)
+    return color, overflow
+
+
+def _pane_camera():
+    """test_blend_order_survives_clipping's camera: at z = 5 looking down
+    -z, 60 degrees of fov_y."""
+    return Camera(
+        eye=np.asarray((0.0, 0.0, 5.0), np.float32),
+        target=np.asarray((0.0, 0.0, 0.0), np.float32),
+        up=np.asarray((0.0, 1.0, 0.0), np.float32),
+        fov_y=np.asarray(np.deg2rad(60.0), np.float32),
+        near=np.asarray(0.5, np.float32),
+        far=np.asarray(50.0, np.float32),
+    )
+
+
+PANE_CFG = RenderConfig(width=128, height=80, mode=MODE_FLAT, blend=True, cull_backfaces=False,
+                        raster_path="binned", bin_capacity=1024)
+
+
+def _with_sliver(scene, corners_px, cfg):
+    """The scene with one more transparent triangle (material 1) whose
+    screen corners are corners_px (pixels), on the plane z = 0 that
+    _pane_camera sees from 5 units away."""
+    t = np.tan(np.deg2rad(30.0)) * 5.0
+    pos = [((2.0 * x / cfg.width - 1.0) * t * cfg.width / cfg.height,
+            (1.0 - 2.0 * y / cfg.height) * t, 0.0) for x, y in corners_px]
+    m = scene.mesh
+    v = m.positions.shape[0]
+    mesh = m.replace(
+        positions=np.concatenate([m.positions, np.asarray(pos, np.float32)]),
+        normals=np.concatenate([m.normals, np.tile(np.float32([[0.0, 0.0, 1.0]]), (3, 1))]),
+        uvs=np.concatenate([m.uvs, np.zeros((3, 2), np.float32)]),
+        indices=np.concatenate([m.indices, np.asarray([[v, v + 1, v + 2]], np.int32)]),
+        material_id=np.concatenate([m.material_id, np.asarray([1], np.int32)]),
+        transform_id=np.concatenate([m.transform_id, np.zeros(3, np.int32)]),
+    )
+    return scene.replace(mesh=mesh)
+
+
+def _sliver_case():
+    """The near-plane panes, one record a chunk, and a live record between
+    pixel centres (snapped to x, y in [10.75, 11.25]): its chunk's box is
+    empty and runs nothing."""
+    scene, cam, cfg, bands = _panes("near_plane", blend_chunk=1)
+    corners = [(10.75, 20.75), (11.25, 20.75), (10.75, 21.25)]
+    return _with_sliver(scene, corners, cfg), cam, cfg, bands
+
+
+def _config4b(t, **over):
+    m = manifest("config4b")
+    p = presets.small_preset(presets.config4_blend(), m["width"], m["height"],
+                             **{**m["overrides"], **over})
+    cam, mm = p.animate(t)
+    return p.scene.replace(model_matrices=mm), cam, p.config, 1
+
+
+def _panes(case, bands=1, **over):
+    return (_pane_scene(FAR_PANES[case], (0.5, 0.4)), _pane_camera(),
+            convert.config_from(dataclasses.replace(PANE_CFG, **over)), bands)
+
+
+CROP_CASES = {
+    **{f"config4b-t{t}": (lambda t=t: _config4b(t)) for t in (0.0, 3.0, 6.05, 9.0, 16.0)},
+    # 4 bands of 64 rows: the panes' rows 24-68 cross the edge at 64;
+    # bands 2 and 3 are reached by no pane
+    "config4b-4bands": lambda: _config4b(0.0)[:3] + (4,),
+    # the far pane reaches x = -30: its chunk's box is cut at column 0
+    "frame_edge": lambda: _panes("guard_band"),
+    # one record a chunk, each its own box; and in 4 bands of 32 rows (the
+    # panes' rows 17-51 cross the edge at 32; bands 2 and 3 reached by none)
+    "chunk1": lambda: _panes("near_plane", blend_chunk=1),
+    "chunk1-4bands": lambda: _panes("near_plane", 4, blend_chunk=1, tile_h=16),
+    "no_centre": lambda: _sliver_case(),
+    # 4 transparent records, 2 held: both chunks of one slot run
+    "over_capacity": lambda: _config4b(0.0, blend_capacity=2, blend_chunk=1),
+}
+
+
+@pytest.mark.parametrize("case", list(CROP_CASES))
+def test_cropped_composite_is_the_whole_frame_composite(monkeypatch, case):
+    scene_np, cam, cfg, bands = CROP_CASES[case]()
+    scene = convert.scene_to_torch(scene_np, "cpu")
+    cap = clip_capacity(scene.mesh.num_triangles, cfg)
+    c, view, proj = renderer.camera_matrices(scene, cam, cfg)
+    shadow = {}
+    if renderer.has_shadow_pass(cfg):
+        shadow, _ = renderer.shadow_pass(scene, cfg, *light_matrices_for_scene(scene), cap)
+    tri, vis_tri = renderer.visible_triangles(scene, view, proj, cfg, cap)
+    live = blend.live_records(tri, scene, cfg)
+    ch = min(cfg.blend_chunk, cfg.blend_capacity)
+    assert live.count == min(int(blend.transparent_mask(tri, scene).sum()), cfg.blend_capacity)
+    assert len(live.boxes) == -(-live.count // ch)
+    _, hb, band_cfg = shard.band_config(cfg, bands) if bands > 1 else (0, cfg.height, cfg)
+    ran, changed = [], []
+    for b in range(bands):
+        yo = b * hb
+        tid, zbuf, _ = dispatch.visibility(vis_tri, band_cfg, cap, y_offset=yo)
+        depth = torch.where(torch.isinf(zbuf), 1.0, zbuf)
+        rgb = renderer.shade(tri, tid, scene, band_cfg, c.eye, shadow, None, depth, yo)
+        want = _plain_composite(rgb, depth, tri, scene, band_cfg, c.eye, y_offset=yo, **shadow)
+        shapes = []
+        calls = _count_chunks(monkeypatch, shapes)
+        got = blend.composite_transparent(rgb, depth, tri, scene, band_cfg, c.eye, y_offset=yo,
+                                          live=live if bands > 1 else None, **shadow)
+        monkeypatch.undo()
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), b
+        assert int(got[1]) == int(want[1]) == max(int(blend.transparent_mask(tri, scene).sum())
+                                                  - cfg.blend_capacity, 0)
+        # a chunk runs where its box meets these rows, on its live slots
+        boxes = [(max(y0, yo), min(y1, yo + hb)) + blend._columns(x0, x1, cfg.width)
+                 for y0, y1, x0, x1 in live.boxes]
+        live_boxes = [(k, bx) for k, bx in enumerate(boxes) if bx[0] < bx[1] and bx[2] < bx[3]]
+        assert calls == {"chunks": len(live_boxes), "reads": int(bands == 1)}
+        assert shapes == [(min(ch, live.count - k * ch), y1 - y0, x1 - x0)
+                          for k, (y0, y1, x0, x1) in live_boxes]
+        ran.append(len(live_boxes))
+        changed.append(not torch.equal(got[0], rgb))
+    assert any(changed), "the panes composite nowhere"
+    if case.endswith("4bands"):
+        assert 0 in ran and sum(ran) > len(live.boxes), ran  # an unreached band, a crossed edge
+    if case == "frame_edge":
+        assert min(x0 for _, _, x0, _ in live.boxes) < 0
+    if case == "no_centre":
+        assert ran[0] < len(live.boxes)

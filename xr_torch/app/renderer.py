@@ -130,12 +130,12 @@ def shade(tri, tid, scene: Scene, config: RenderConfig, eye, shadow: dict, shade
 
 
 def blend_pass(rgb, depth, tri, scene: Scene, config: RenderConfig, eye, shadow: dict,
-               y_offset: int = 0, n_live=None):
+               y_offset: int = 0, live=None):
     """The transparent records composited over the shaded frame (or band
-    of rows from y_offset): (rgb, blend_overflow). n_live: the live
-    transparent slots if already read (blend.live_records)."""
+    of rows from y_offset): (rgb, blend_overflow). live: the live
+    transparent slots and their boxes if already read (blend.live_records)."""
     return blend.composite_transparent(rgb, depth, tri, scene, config, eye, y_offset=y_offset,
-                                       n_live=n_live, **shadow)
+                                       live=live, **shadow)
 
 
 def render_step(scene: Scene, camera, config: RenderConfig, light_view=None,

@@ -74,8 +74,8 @@ class DeviceWork(NamedTuple):
     """What every band on one device reads: the scene there, the camera
     with tensor leaves, the setup records (tri) and those visibility sees
     (vis_tri), the shadow map for shading and its pass's bin_overflow, and
-    under blending the live transparent slots (read to the host once here
-    for all the device's bands)."""
+    under blending the live transparent slots and their chunks' screen
+    boxes (read to the host once here for all the device's bands)."""
 
     scene: Scene
     cam: object
@@ -83,7 +83,7 @@ class DeviceWork(NamedTuple):
     vis_tri: object
     shadow: dict
     shadow_bin_overflow: torch.Tensor
-    blend_live: Optional[int]
+    blend_live: Optional[blend.LiveSlots]
 
 
 def device_pass(scene: Scene, camera, config: RenderConfig, light_view, light_proj,

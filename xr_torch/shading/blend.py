@@ -9,18 +9,26 @@ parent's ``src_id``; a stable sort keeps the fan pieces of one source
 triangle in record order.
 
 The reference runs the composite as a ``lax.scan`` over chunks of
-``blend_chunk`` records and skips dead chunks with ``lax.cond`` on
-``ok.any()``. The live slots are a prefix of the source-ordered list, so
-chunk ``c`` is live exactly when ``c * blend_chunk < min(total,
-blend_capacity)``: the port reads that count to the host once per
-composite (``live_records``) and runs only the live chunks, each with the
-same masks as before. That is one device-to-host read per frame on a scene
-with an alpha column; scenes without one return before it. Transparent
-fragments get the deferred pass's shading model: interpolation, trilinear
-texturing with the analytic LOD, Phong and the shadow test.
+``blend_chunk`` records, each over the whole frame, and skips dead chunks
+with ``lax.cond`` on ``ok.any()``. The live slots are a prefix of the
+source-ordered list, so chunk ``c`` is live exactly when ``c * blend_chunk
+< min(total, blend_capacity)``. The port reads that count to the host
+once per composite, in one transfer with each live chunk's screen box
+(``live_records``), and runs each live chunk on its live slots only and
+only over the pixels its records can cover: the box of their pixel
+centres, cut to the frame and to the band's rows, widened to whole groups
+of 32 columns. A fragment's math reads nothing of its neighbours (the
+sampler's LOD is analytic per record, the shadow test samples the map
+per pixel), so the frame is the whole-frame composite's bit for bit. That
+is one device-to-host read per frame on a scene with an alpha column;
+scenes without one return before it. Transparent fragments get the
+deferred pass's shading model: interpolation, trilinear texturing with
+the analytic LOD, Phong and the shadow test.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +42,12 @@ from xr_torch.raster import common as rc
 from xr_torch.shading.deferred import _lod_terms, _sample_texture
 
 F32, I32 = torch.float32, torch.int32
+_FAR = 2**30  # past any snapped vertex: a chunk's extent starts from it
+# the crop's columns come in groups of 32: whole 128-byte rows of an f32
+# plane on the card, and on the CPU no pixel of a frame whose width is a
+# multiple of 32 falls in the scalar remainder of a vector loop, whose
+# pow and log may round apart from the vector body's
+COLUMNS = 32
 
 
 def material_alpha(scene: Scene):
@@ -55,12 +69,52 @@ def opaque_valid(tri, scene: Scene) -> torch.Tensor:
     return tri.valid & ~transparent_mask(tri, scene)
 
 
+class LiveSlots(NamedTuple):
+    """The composite's live transparent slots, read to the host in one
+    transfer (``live_records``). count: min(total, blend_capacity); boxes:
+    per live chunk, (y0, y1, x0, x1), the half-open rows and columns of the
+    full frame whose pixel centres lie in the bounding box of the chunk's
+    live records, not cut to the frame (empty where y1 <= y0 or x1 <= x0);
+    ids: (nchunks * chunk,) int64 record ids in source order on the
+    records' device (slots from count on are dead)."""
+
+    count: int
+    boxes: list
+    ids: torch.Tensor
+
+
 def live_records(tri, scene: Scene, config: RenderConfig):
-    """The live transparent slots, min(total, blend_capacity), read to the
-    host; None when the scene has no alpha column (nothing composites)."""
+    """The live transparent slots and each live chunk's screen box, read
+    to the host in one transfer (LiveSlots); None when the scene has no
+    alpha column (nothing composites)."""
     if material_alpha(scene) is None:
         return None
-    return int(torch.clamp_max(transparent_mask(tri, scene).sum(), config.blend_capacity))
+    cap = config.blend_capacity
+    ch = min(config.blend_chunk, cap)
+    nchunks = -(-cap // ch)
+    ids, total = _src_ordered_ids(tri, transparent_mask(tri, scene), nchunks * ch)
+    ids = ids.long()
+    count = torch.clamp_max(total, cap)
+    live = (torch.arange(nchunks * ch, device=ids.device) < count)[:, None]
+
+    def extent(v):  # (nchunks,) min and max of the live slots' vertices
+        v = v[ids]
+        lo = torch.where(live, v, _FAR).view(nchunks, ch * 3).amin(1)
+        hi = torch.where(live, v, -_FAR).view(nchunks, ch * 3).amax(1)
+        return _first_center(lo, config.subpixel), _first_center(hi + 1, config.subpixel)
+
+    y0, y1 = extent(tri.ys)
+    x0, x1 = extent(tri.xs)
+    vals = torch.cat([count.view(1), torch.stack([y0, y1, x0, x1], 1).view(-1)]).tolist()
+    n = vals[0]
+    boxes = [tuple(vals[1 + 4 * c : 5 + 4 * c]) for c in range(-(-n // ch))]
+    return LiveSlots(n, boxes, ids)
+
+
+def _first_center(v, subpixel: int):
+    """The first pixel whose centre (fp.pixel_center_fixed) lies at or past
+    the fixed-point coordinate v: ceil((v - subpixel // 2) / subpixel)."""
+    return -torch.div(subpixel // 2 - v, subpixel, rounding_mode="floor")
 
 
 def _src_ordered_ids(tri, tmask, cap: int):
@@ -77,62 +131,77 @@ def _src_ordered_ids(tri, tmask, cap: int):
     return ids, tmask.sum(dtype=I32)
 
 
+def _columns(x0: int, x1: int, width: int):
+    """[x0, x1) cut to the frame's width and, unless that leaves it empty,
+    widened to whole groups of COLUMNS columns."""
+    x0, x1 = max(x0, 0), min(x1, width)
+    if x0 >= x1:
+        return x0, x1
+    return x0 // COLUMNS * COLUMNS, min(-(-x1 // COLUMNS) * COLUMNS, width)
+
+
 def composite_transparent(color, depth, tri, scene: Scene, config: RenderConfig, eye,
                           shadow_depth=None, light_viewproj=None, y_offset: int = 0,
-                          n_live=None):
+                          live=None):
     """Composite the transparent records over the shaded frame.
 
     color (H, W, 3) f32 linear, background included; depth (H, W) f32
     opaque depth (1.0 = background); both hold rows [y_offset, y_offset +
     H) of the full frame (a screen band walks the whole transparent list
-    against its own rows). n_live: ``live_records`` of these records when
+    against its own rows). live: ``live_records`` of these records when
     the caller has read it already (once per device for all its bands);
-    None reads it here. Only the ceil(n_live / blend_chunk) live chunks
-    run. Returns (color, overflow () i32): the transparent records past
-    blend_capacity, which strict readback raises on."""
+    None reads it here. Each of the ceil(live.count / blend_chunk) live
+    chunks runs on its live slots over its box cut to these rows; a chunk
+    whose box misses them runs nothing. Returns (color, overflow () i32):
+    the transparent records past blend_capacity, which strict readback
+    raises on."""
     H, W = depth.shape
     dev = depth.device
     cap = config.blend_capacity
     ch = min(config.blend_chunk, cap)
-    nchunks = -(-cap // ch)
     alpha = material_alpha(scene)
-    tmask = transparent_mask(tri, scene)
-    ids, total = _src_ordered_ids(tri, tmask, cap)
+    total = transparent_mask(tri, scene).sum(dtype=I32)
     overflow = torch.clamp_min(total - cap, 0).to(I32)
     if alpha is None:
         return color, overflow
+    if live is None:
+        live = live_records(tri, scene, config)
 
-    px, py = rc.pixel_grids(W, H, config.subpixel, dev)
-    py = py + y_offset * config.subpixel
-    slot_valid = torch.arange(nchunks * ch, device=dev) < torch.clamp_max(total, cap)
-    ids = torch.cat([ids, ids.new_zeros(nchunks * ch - cap)]).long()
     eye = torch.as_tensor(eye, dtype=F32, device=dev)
-    if n_live is None:
-        n_live = live_records(tri, scene, config)
-
-    for c in range(-(-n_live // ch)):
-        sl = ids[c * ch : (c + 1) * ch]
-        ok = slot_valid[c * ch : (c + 1) * ch]
-        xs = tri.xs[sl][:, None, None, :]  # (ch, 1, 1, 3)
+    out = None
+    for c, (y0, y1, x0, x1) in enumerate(live.boxes):
+        y0, y1 = max(y0, y_offset), min(y1, y_offset + H)
+        x0, x1 = _columns(x0, x1, W)
+        if y0 >= y1 or x0 >= x1:
+            continue
+        sl = live.ids[c * ch : min((c + 1) * ch, live.count)]
+        px = fp.pixel_center_fixed(torch.arange(x0, x1, device=dev), config.subpixel)
+        py = fp.pixel_center_fixed(torch.arange(y0, y1, device=dev), config.subpixel)
+        rows = slice(y0 - y_offset, y1 - y_offset)
+        xs = tri.xs[sl][:, None, None, :]  # (k, 1, 1, 3)
         ys = tri.ys[sl][:, None, None, :]
-        cov, (e0, e1, e2) = fp.coverage(xs, ys, px[None], py[None])
-        zf = rc.fragment_depth(e0, e1, e2, tri.z[sl][:, None, None, :])  # (ch, H, W)
+        cov, (e0, e1, e2) = fp.coverage(xs, ys, px[None, None, :], py[None, :, None])
+        zf = rc.fragment_depth(e0, e1, e2, tri.z[sl][:, None, None, :])  # (k, h, w)
         # read-only depth test against the opaque buffer (strict <: a
         # fragment exactly on an opaque surface is occluded)
-        mask = cov & rc.depth_range_mask(zf) & ok[:, None, None] & (zf < depth[None])
+        mask = cov & rc.depth_range_mask(zf) & (zf < depth[rows, x0:x1][None])
         frag = _fragment_colors(tri, sl, scene, config, eye, e0, e1, e2, mask,
                                 shadow_depth, light_viewproj)
-        a = alpha[tri.mat_id[sl].long()]  # (ch,)
+        a = alpha[tri.mat_id[sl].long()]  # (k,)
+        if out is None:
+            out = color.clone()
+        box = out[rows, x0:x1]
         # back to front within the chunk too: composite order is semantics
-        for j in range(ch):
-            color = torch.where(mask[j][..., None], color * (1.0 - a[j]) + frag[j] * a[j], color)
-    return color, overflow
+        for j in range(sl.shape[0]):
+            box = torch.where(mask[j][..., None], box * (1.0 - a[j]) + frag[j] * a[j], box)
+        out[rows, x0:x1] = box
+    return (color if out is None else out), overflow
 
 
 def _fragment_colors(tri, sl, scene: Scene, config: RenderConfig, eye, e0, e1, e2, mask,
                      shadow_depth=None, light_viewproj=None):
-    """(ch, H, W, 3) linear colors of a chunk's fragments under the deferred
-    pass's shading model. Uncovered lanes' attributes are zeroed at the
+    """(k, h, w, 3) linear colors of a chunk's k slots over its (h, w) box
+    under the deferred pass's shading model. Uncovered lanes' attributes are zeroed at the
     source (the 1/w underflow guard the deferred pass applies at its
     background pixels)."""
     mode = config.mode
@@ -186,7 +255,7 @@ def _fragment_colors(tri, sl, scene: Scene, config: RenderConfig, eye, e0, e1, e
 
 def _chunk_texture(tri, sl, scene: Scene, config: RenderConfig, u, v, uv_slot, e0, e1, e2,
                    denom, mid):
-    """(ch, H, W, 3) trilinear texture colors of a chunk's fragments: the
+    """(k, h, w, 3) trilinear texture colors of a chunk's fragments: the
     deferred pass's sampler with the per-record LOD terms; white where the
     material has no texture. The reference skips the sampler for a chunk
     with no live textured record (``lax.cond``); here it always runs when
