@@ -81,9 +81,12 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      passes) and config7 (n0=64, its config sized on the card, which must equal the one sized on the
      CPU) at golden size through Renderer on the card against tests/goldens/
      (<= 1 LSB; config4/4b/6/6cap at most max(2, 0.1 %) pixels past it, the
-     shadow-edge rule of tests/test_goldens.py), coverage within 1e-6
+     shadow-edge rule of tests/test_goldens.py), coverage within 1e-6; the
+     checked frame is each Renderer's second step (the first captures)
   6. main path, each run with the launch counts set to 0 just before it
-     and read just after, one warm-up frame first:
+     and read just after, one warm-up frame first (Renderer's capture); a
+     replayed graph calls no launch wrapper and counts the visibility
+     kernels the driver's graph holds (xr_torch.kernels.graph_launches):
      - config3 at 1920x1080 (100,352 triangles), 30 frames through
        Renderer.step + readback; the stream kernel in every frame; then the
        same cameras under bin_zorder + z_earlyout (the gated kernel) and
@@ -142,6 +145,18 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      - one config3 frame and one banded config5 frame through present() +
        flush() (the host copy started when the frame is queued, into pinned
        memory) against step() + readback(): the same bytes
+     - graphs: Renderer.step replays the frame it captured at its first
+       step (one CUDA graph a stage span; config4b's blend runs eagerly):
+       the six benchmark cells' presets as published at 1920x1080 (the
+       present cell through present() + flush()), GRAPH_FRAMES t of each
+       cell's seed-0 path, against render_step's eager frames of the same
+       cameras: color, depth and stats byte-equal and the same kernel
+       launches a frame, else the phase fails; the
+       capture's seconds, the graphs a frame and the peak device memory;
+       then eager and graphed in turns, 3 rounds: host ms in the step call
+       and ms a frame; then config3 with backend="jnp" at its own
+       bin_capacity (3 t) the same way: its plain lists' fold loops as far
+       as the data goes in an eager frame, to the capacity in a captured one
      - the gather microbenchmarks: xr_torch.tools.probe_lanegather and
        xr_torch.tools.microbench_gather, as run from the command line
      prints ms/frame of each and the device time of each stage, timed on
@@ -227,6 +242,7 @@ EDGE_OPS = 6  # per pixel of a record's bbox: three edge functions of two multip
 DECODE_OPS = 8  # per (tile, record) pair: unpacking the bbox and the tie offsets
 GATE_STRESS = 1000  # launches of the gated kernel a path, each held against the ungated one
 BENCH_FRAMES = 8  # timed frames a cell in the benchmark phase
+GRAPH_FRAMES = 8  # t a cell in the phase of graphed against eager frames
 
 
 def log(msg: str) -> None:
@@ -937,7 +953,7 @@ def phase_gathers(dev, clock_hz) -> dict:
 
 
 def phase_golden(dev) -> None:
-    from xr_torch import Renderer, kernels
+    from xr_torch import Renderer
     from xr_torch.core.image import read_png
 
     from xr_torch.scene import presets
@@ -955,9 +971,8 @@ def phase_golden(dev) -> None:
         p, cam, scene = _setup(dev, _preset(name), m["width"], m["height"], m["t"],
                                **m["overrides"])
         r = Renderer(scene, p.config, dev)
-        kernels.reset_launches()
-        frame = r.readback(r.step(scene, cam))
-        launched = dict(kernels.launches)
+        r.step(scene, cam)  # the capture
+        frame, launched = _counted(lambda: r.readback(r.step(scene, cam)))
         golden = read_png(os.path.join(ROOT, "tests", "goldens", f"{name}.png"))
         diff = np.abs(frame.color.astype(int) - golden.astype(int))
         bad = int((diff.max(axis=-1) > 1).sum())
@@ -1016,25 +1031,41 @@ def _stage_times(dev, p, cam, scene, kernel="vis_stream", reps=10) -> dict:
     return out
 
 
+def _counted(fn):
+    """fn() with the launch counts set to 0 just before it and read just
+    after (kernels.launches: a wrapper's launches, and each replayed graph's
+    visibility kernels as the driver's graph holds them); returns (fn's
+    value, the launches)."""
+    from xr_torch import kernels
+
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.launches)
+
+
 def _run_frames(dev, scene, cfg, cams, banded=False, **renderer_kw):
-    """One warm-up frame, then one frame per camera through Renderer.step +
-    readback (banded: ShardedRenderer's, its config.num_shards bands all on
-    dev), with the launch counts set to 0 just before the timed frames and
-    read just after. Returns (ms per frame, host frames, launches)."""
+    """One warm-up frame (Renderer's capture), then one frame per camera
+    through Renderer.step + readback (banded: ShardedRenderer's, its
+    config.num_shards bands all on dev), the launches counted over them
+    (_counted). Returns (ms per frame, host frames, launches)."""
     from bench_torch.frames import failure
-    from xr_torch import Renderer, ShardedRenderer, kernels
+    from xr_torch import Renderer, ShardedRenderer
 
     r = (ShardedRenderer(scene, cfg, devices=[dev], **renderer_kw) if banded
          else Renderer(scene, cfg, dev, **renderer_kw))
     r.readback(r.step(scene, cams[0]))  # warm-up
     torch.cuda.synchronize()
-    kernels.reset_launches()
-    times, frames = [], []
-    for cam in cams:
-        t0 = time.perf_counter()
-        frames.append(r.readback(r.step(scene, cam)))
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(kernels.launches)
+
+    def run():
+        times, frames = [], []
+        for cam in cams:
+            t0 = time.perf_counter()
+            frames.append(r.readback(r.step(scene, cam)))
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times, frames
+
+    (times, frames), launches = _counted(run)
     for f in frames:
         reason = failure(f, cfg)
         if reason:
@@ -1557,8 +1588,8 @@ def _app_layer(dev, p, scene, cams, frames) -> list:
     in ms per frame), a NaN vertex through the stream kernel (no fault;
     strict readback names the input stage), a shade_hook reading
     frag.depth, and recycle_framebuffers=False (the same bytes). Returns
-    the launches of each run, each counted from 0 just before it."""
-    from xr_torch import Renderer, kernels
+    the launches of each run, each counted (_counted)."""
+    from xr_torch import Renderer
 
     n, runs = 10, []
     dbg = dataclasses.replace(p.config, debug_checks=True)
@@ -1580,10 +1611,8 @@ def _app_layer(dev, p, scene, cams, frames) -> list:
         "every nf_* 0")
 
     def one_frame(r, sc):
-        kernels.reset_launches()
-        f = r.step(sc, cams[0])
-        torch.cuda.synchronize()
-        runs.append(dict(kernels.launches))
+        f, launched = _counted(lambda: r.step(sc, cams[0]))
+        runs.append(launched)
         if runs[-1]["vis_stream"] != 1:
             raise AssertionError(f"one frame launched {runs[-1]}")
         return f
@@ -1591,6 +1620,7 @@ def _app_layer(dev, p, scene, cams, frames) -> list:
     pos = scene.mesh.positions.clone()
     pos[7, 1] = float("nan")
     r = Renderer(scene, dbg, dev)
+    r.step(scene, cams[0])  # the capture
     f = one_frame(r, scene.replace(mesh=scene.mesh.replace(positions=pos)))
     try:
         r.readback(f)
@@ -1611,6 +1641,7 @@ def _app_layer(dev, p, scene, cams, frames) -> list:
         return color * (1.0 - f) + f
 
     r = Renderer(scene, p.config, dev, shade_hook=fog)
+    r.step(scene, cams[0])  # the capture
     hooked = r.readback(one_frame(r, scene))
     fg = hooked.depth < 1.0
     if (seen["depth"].device != scene.mesh.positions.device
@@ -1732,11 +1763,11 @@ def phase_oracle(dev) -> dict:
     card's path: one frame of each path of ORACLE_PATHS through
     Renderer.step + readback (ShardedRenderer's for bands, all on this
     card), the same frame by the oracle on the CPU with its shadow-flip
-    risk set, under _against_oracle's rule. The launch counts are set to 0
-    before each card frame and read after it. A frame that breaks the rule
+    risk set, under _against_oracle's rule. Each card frame is the second
+    step (the first captures), its launches counted (_counted). A frame that breaks the rule
     has its arrays written to build/oracle_mismatch/ and fails the phase
     once every frame is checked. Returns the launches."""
-    from xr_torch import Renderer, ShardedRenderer, convert, kernels
+    from xr_torch import Renderer, ShardedRenderer, convert
     from xr_torch.cpu_ref.margins import frame_and_risk
 
     total = dict.fromkeys(KERNELS, 0)
@@ -1750,9 +1781,8 @@ def phase_oracle(dev) -> dict:
         cam = p.animate(t)[0]
         r = (ShardedRenderer(scene, p.config, devices=[dev]) if bands > 1
              else Renderer(scene, p.config, dev))
-        kernels.reset_launches()
-        card = r.readback(r.step(scene, cam))
-        launches = dict(kernels.launches)
+        r.step(scene, cam)  # the capture
+        card, launches = _counted(lambda: r.readback(r.step(scene, cam)))
         want = {k: (per_frame if k == kernel else 0) for k in KERNELS}
         if launches != want:
             raise AssertionError(f"oracle {label}: launches {launches}, expected {want}")
@@ -1848,6 +1878,147 @@ def phase_entry_points() -> None:
         "within 1 LSB of tests/goldens (shadow edges: max(2, 0.1 %) px past it)")
 
 
+def _eager_step(r, scene, cam):
+    """The frame Renderer r captures, run eagerly: render_step into r's
+    output buffers, as Renderer.step ran it before frames were captured."""
+    from xr_torch.app.renderer import render_step
+
+    lv, lp = r._light or (None, None)
+    return render_step(scene, cam, r.config, lv, lp, capacity=r.capacity,
+                       out=r._out(scene.mesh.positions.device), shade_hook=r._hook)
+
+
+def _graph_turns(r, scene, cams, present: bool, rounds: int = 3) -> dict:
+    """Eager and graphed frames in turns (eager first in even rounds): host
+    ms in the step call and ms a frame (step + readback; through present,
+    the interval between returns, flush closing the last), each round's
+    median over the cameras; and ms a frame of the steps queued back to
+    back with no readback (CUDA events around all of them: the device's
+    pace where the host keeps ahead of it). Returns {"eager"|"graphed":
+    {"step": [...], "frame": [...], "queued": [...]}}."""
+    out = {k: {"step": [], "frame": [], "queued": []} for k in ("eager", "graphed")}
+    for k in range(rounds):
+        for mode in (("eager", "graphed") if k % 2 == 0 else ("graphed", "eager")):
+            step = (lambda c: _eager_step(r, scene, c)) if mode == "eager" else (
+                lambda c: r.step(scene, c))
+            r.readback(step(cams[0]))
+            torch.cuda.synchronize()
+            steps, frames = [], []
+            mark = time.perf_counter()
+            for cam in cams:
+                t0 = time.perf_counter()
+                f = step(cam)
+                steps.append((time.perf_counter() - t0) * 1e3)
+                if present:
+                    r.present(f)
+                else:
+                    r.readback(f)
+                now = time.perf_counter()
+                frames.append((now - (mark if present else t0)) * 1e3)
+                mark = now
+            if present:
+                r.flush()
+                frames = frames[1:] + [(time.perf_counter() - mark) * 1e3]
+            out[mode]["step"].append(float(np.median(steps)))
+            out[mode]["frame"].append(float(np.median(frames)))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            queued = [step(cam) for cam in cams]
+            end.record()
+            torch.cuda.synchronize()
+            out[mode]["queued"].append(start.elapsed_time(end) / len(cams))
+            for f in queued:
+                r._retire(f)
+    return out
+
+
+def _graphs_case(dev, name, preset, ts, present=False, **over) -> dict:
+    """One case of phase_graphs: the preset as published at 1920x1080 (with
+    `over`) at the t of `ts`. Returns the launches of the graphed frames."""
+    from bench_torch.frames import failure
+    from bench_torch.oracle import same_bytes
+    from xr_torch import Renderer
+    from xr_torch.app.renderer import readback_frame
+
+    p, _, scene = _setup(dev, _preset(preset, full=True), 1920, 1080, 0.0, **over)
+    r = Renderer(scene, p.config, dev)
+    cams = [p.animate(t)[0] for t in ts]
+    eager, n_eager = [], []
+    for cam in cams:
+        f, n = _counted(lambda: readback_frame(_eager_step(r, scene, cam)))
+        eager.append(f)
+        n_eager.append(n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t_cap = time.perf_counter()
+    r.readback(r.step(scene, cams[0]))
+    t_cap = time.perf_counter() - t_cap
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    segs = r._captured.program.segments
+    total = dict.fromkeys(KERNELS, 0)
+
+    def graphed(cam):
+        if present:  # the frame's pinned copy, started when it is queued
+            if r.present(r.step(scene, cam)) is not None:
+                raise AssertionError(f"{name}: present returned a frame after flush")
+            return r.flush()
+        return r.readback(r.step(scene, cam))
+
+    for i, cam in enumerate(cams):
+        got, n_got = _counted(lambda: graphed(cam))
+        for k, v in n_got.items():
+            total[k] += v
+        reason = failure(got, p.config)
+        if reason or not same_bytes(got, eager[i]) or list(got.stats) != list(eager[i].stats):
+            raise AssertionError(f"{name} t={ts[i]:.2f}: the graphed frame is not "
+                                 f"render_step's ({reason})")
+        if n_got != n_eager[i]:
+            raise AssertionError(f"{name} t={ts[i]:.2f}: graphed launches {n_got}, eager "
+                                 f"{n_eager[i]}")
+    turns = _graph_turns(r, scene, cams, present)
+    log(f"graphs {name}: {len(ts)} frames (t {ts[0]:.2f}..{ts[-1]:.2f}) byte-equal to "
+        f"render_step's, launches a frame (eager and graphed alike) {n_eager[0]}; "
+        f"{sum(s.graph is not None for s in segs)} graphs a frame, eager "
+        f"{[s.name for s in segs if s.graph is None]}; capture + first frame {t_cap:.3f} s; "
+        f"device memory of the capture at its peak {peak / 2**20:.1f} MiB above what was "
+        "allocated before it")
+    for mode in ("eager", "graphed"):
+        log(f"graphs {name} {mode} (3 rounds in turns, medians of {len(ts)} frames): host ms "
+            f"in step {turns[mode]['step']}, ms a frame {turns[mode]['frame']}, ms a frame "
+            f"queued back to back (CUDA events) {turns[mode]['queued']}")
+    return total
+
+
+def phase_graphs(dev) -> dict:
+    """Renderer.step replays the frame it captured at its first step: the
+    six benchmark cells' presets as published at 1920x1080 (the present
+    cell's through present() + flush()), each over GRAPH_FRAMES t of its
+    cell's seed-0 path, graphed against render_step's eager frames on the
+    same cameras: color, depth and stats byte-equal and the same kernel
+    launches a frame (_counted), else the phase fails. Then the two in turns, 3 rounds: host
+    ms in the step call and ms a frame. Prints the capture's seconds, the
+    graphs a frame (and the segments that run eagerly), peak device memory
+    of each. Then config3 with backend="jnp" at its own bin_capacity, 3 t:
+    its plain lists' fold loops as far as the data goes in an eager frame
+    and to the capacity in a captured one, which cannot read the data;
+    byte-equal and timed in turns the same way. Returns the launches of
+    the graphed frames."""
+    from bench_torch.cells import CELLS, frame_t, t0
+
+    total = dict.fromkeys(KERNELS, 0)
+    for cell in CELLS:
+        t_first = t0(cell, 0)
+        ts = [frame_t(t_first, i) for i in range(GRAPH_FRAMES)]
+        for k, v in _graphs_case(dev, cell.name, cell.preset, ts, cell.present).items():
+            total[k] += v
+    cell = next(c for c in CELLS if c.preset == "config3")
+    ts = [frame_t(t0(cell, 0), i) for i in range(3)]
+    _graphs_case(dev, "config3 backend=jnp", "config3", ts, backend="jnp")
+    return total
+
+
 def phase_benchmark() -> dict:
     """The port's benchmark as its command runs it (python -m bench_torch),
     at BENCH_FRAMES timed frames a cell, every cell checked against the
@@ -1888,6 +2059,8 @@ def main() -> int:
     for k, v in phase_oracle(dev).items():
         launches[k] += v
     phase_present(dev)
+    for k, v in phase_graphs(dev).items():
+        launches[k] += v
     for k, v in phase_gather_tools(dev).items():
         launches[k] += v
     phase_entry_points()

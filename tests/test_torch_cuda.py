@@ -215,6 +215,7 @@ def test_cuda_frame_equals_cpu_frame(cuda, name):
     p = p._replace(config=dataclasses.replace(p.config, shadow_map_size=min(
         p.config.shadow_map_size, 256)))
     rc = Renderer(scene, p.config, cuda)
+    rc.step(scene, cam)  # the capture; the checked frame replays it
     kernels.reset_launches()
     fc = rc.readback(rc.step(scene, cam))
     b1 = "vis_stream_zgate" if stream.gated(p.config) else "vis_stream"  # config7: z_earlyout
@@ -605,8 +606,10 @@ def _permuted(scene, perm):
 
 
 def _frames(cuda, scene, cfg, cam, n=1):
-    """n frames through Renderer on the card; the gated kernel ran in each."""
+    """n frames through Renderer on the card after the step that captures;
+    the gated kernel ran in each."""
     r = Renderer(scene, cfg, cuda)
+    r.step(scene, cam)
     n0 = kernels.launches["vis_stream_zgate"]
     frames = [r.readback(r.step(scene, cam)) for _ in range(n)]
     assert kernels.launches["vis_stream_zgate"] == n0 + n
@@ -687,3 +690,149 @@ def test_gated_kernel_on_the_stacked_planes(cuda, name):
     cfg = dataclasses.replace(p.config, bin_zorder=name.endswith("zorder"),
                               z_chunk_gate=name.endswith("chunk"))
     _gated_matches(cuda, p, cam, scene, cfg, repeats=100)
+
+
+GRAPH_PRESETS = {**PRESETS, "config5": lambda: presets.config5_flythrough(64, 64),
+                 "config6": presets.config6_asset, "config6cap": presets.config6_capped}
+GRAPH_CASES = {**{name: (name, {}) for name in GRAPH_PRESETS},
+               "config2_smem": ("config2", {"backend": "pallas_smem"}),
+               "config3_smem": ("config3", {"backend": "pallas_smem"}),
+               "config3_jnp": ("config3", {"backend": "jnp"}),
+               "config3_brute": ("config3", {"raster_path": "brute"}),
+               "config3_debug": ("config3", {"debug_checks": True}),
+               "config4_smem": ("config4", {"backend": "pallas_smem"}),
+               "config4_jnp": ("config4", {"backend": "jnp"})}
+
+
+def _graph_case(cuda, case, t=0.3):
+    name, over = GRAPH_CASES[case]
+    p, cam, scene = _scene(cuda, t, GRAPH_PRESETS[name]())
+    cfg = dataclasses.replace(p.config, shadow_map_size=min(p.config.shadow_map_size, 256),
+                              **over)
+    return p._replace(config=cfg), scene
+
+
+def _eager(r, scene, cam, light=None):
+    """render_step on what Renderer r renders, with the launches it counts."""
+    from xr_torch.app.renderer import render_step
+
+    lv, lp = light or r._light or (None, None)
+    kernels.reset_launches()
+    f = render_step(scene, cam, r.config, lv, lp, capacity=r.capacity, shade_hook=r._hook)
+    torch.cuda.synchronize()
+    return f, dict(kernels.launches)
+
+
+def _graphed(r, scene, cam, light=None):
+    """r.step after its first (the capture), with the launches it counts:
+    the visibility kernels its replayed graphs hold."""
+    kernels.reset_launches()
+    f = r.step(scene, cam, light)
+    torch.cuda.synchronize()
+    return f, dict(kernels.launches)
+
+
+def _bit_equal(got, want):
+    assert torch.equal(got.color, want.color)
+    assert torch.equal(got.depth.view(torch.int32), want.depth.view(torch.int32))
+    assert list(got.stats) == list(want.stats)
+    for k, v in want.stats.items():
+        assert got.stats[k].dtype == v.dtype and int(got.stats[k]) == int(v), k
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graphed_frame_equals_render_step(cuda, case):
+    """Renderer on the card captures the frame at its first step and
+    replays it: every frame, the first included, equals render_step's
+    eager frame bit for bit, stats included, with the same kernel launches
+    counted (a replay's from its graphs' kernel nodes); only config4b's
+    blend runs eagerly."""
+    p, scene = _graph_case(cuda, case)
+    r = Renderer(scene, p.config, cuda)
+    cam = p.animate(0.3)[0]
+    _bit_equal(r.step(scene, cam), _eager(r, scene, cam)[0])  # the step that captures
+    for t in (0.3, 1.1, 2.0):
+        cam = p.animate(t)[0]
+        got, n_got = _graphed(r, scene, cam)
+        want, n_want = _eager(r, scene, cam)
+        _bit_equal(got, want)
+        assert n_got == n_want
+    eager = [s.name for s in r._captured.program.segments if s.graph is None]
+    assert eager == (["blend"] if p.config.blend else [])
+    if r._light is not None:  # the light_matrices= override reaches the shadow pass
+        lv, lp = r._light
+        lv = np.array(lv, np.float32)
+        lv[0, 3] += np.float32(0.75)  # the light's view moved sideways
+        light = (lv, lp)
+        got, _ = _graphed(r, scene, p.animate(1.1)[0], light)
+        _bit_equal(got, _eager(r, scene, p.animate(1.1)[0], light)[0])
+        assert not torch.equal(got.color, r.step(scene, p.animate(1.1)[0]).color)
+
+
+def test_graphed_present_equals_readback(cuda):
+    """10 distinct cameras through present/flush equal step + readback:
+    the camera's staging ring never overwrites a copy in flight."""
+    p, scene = _graph_case(cuda, "config4")
+    cams = [p.animate(0.2 * i)[0] for i in range(10)]
+    r = Renderer(scene, p.config, cuda)
+    want = [r.readback(r.step(scene, c)) for c in cams]
+    q = Renderer(scene, p.config, cuda)
+    got = [q.present(q.step(scene, c)) for c in cams][1:] + [q.flush()]
+    for g, w in zip(got, want):
+        assert np.array_equal(g.color, w.color) and np.array_equal(g.depth, w.depth)
+        assert {k: int(v) for k, v in g.stats.items()} == {k: int(v) for k, v in w.stats.items()}
+    assert len({w.color.tobytes() for w in want}) == len(cams)
+
+
+def test_graphed_frames_without_recycling(cuda):
+    """recycle_framebuffers=False: every replayed frame has buffers of its
+    own, which later replays leave as they were."""
+    p, scene = _graph_case(cuda, "config3")
+    r = Renderer(scene, p.config, cuda, recycle_framebuffers=False)
+    cams = [p.animate(t)[0] for t in (0.3, 0.9, 1.5)]
+    frames = [r.step(scene, c) for c in cams]
+    assert len({f.color.data_ptr() for f in frames} | {f.depth.data_ptr() for f in frames}) == 6
+    for f, c in zip(frames, cams):
+        _bit_equal(f, _eager(r, scene, c)[0])
+    assert not r._pool
+
+
+def test_graphed_scene_swap_and_reshape(cuda):
+    """A scene in other tensors of the same shapes is copied into the
+    captured inputs (and the first scene renders again after it, its
+    tensors untouched); an edit in place is seen; a scene of other shapes
+    captures anew."""
+    p, scene = _graph_case(cuda, "config3")
+    cam = p.animate(0.5)[0]
+    r = Renderer(scene, p.config, cuda)
+    first = r.step(scene, cam)
+    mm = scene.model_matrices.clone()
+    raised = mm.clone()
+    raised[:, 1, 3] += 0.25
+    other = scene.replace(model_matrices=raised)
+    got = r.step(other, cam)
+    _bit_equal(got, _eager(r, other, cam)[0])
+    assert torch.equal(scene.model_matrices, mm) and not torch.equal(got.color, first.color)
+    _bit_equal(r.step(scene, cam), first)
+    program = r._captured.program
+    scene.model_matrices.mul_(1.5)
+    _bit_equal(r.step(scene, cam), _eager(r, scene, cam)[0])
+    scene.model_matrices.copy_(mm)
+    small = convert.scene_to_torch(presets.config3_terrain(32, 32).scene.replace(
+        model_matrices=p.animate(0.5)[1]), cuda)
+    _bit_equal(r.step(small, cam), _eager(r, small, cam)[0])
+    assert r._captured.program is not program
+
+
+def test_graphed_hook_reading_the_host_raises(cuda):
+    """A shade_hook that reads the card's values on the host cannot be
+    captured, as it cannot be traced under jit: the step raises and names
+    the shade stage."""
+    p, scene = _graph_case(cuda, "config3")
+
+    def host_read(color, scene_, mat_id, xp):
+        return color * float(color.max())
+
+    r = Renderer(scene, p.config, cuda, shade_hook=host_read)
+    with pytest.raises(RuntimeError, match="shade stage"):
+        r.step(scene, p.animate(0.3)[0])

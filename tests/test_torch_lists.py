@@ -52,6 +52,14 @@ def _ref_tri(preset, width, height, t, **over):
     return tri, p.config
 
 
+def _lists_visibility(tri, cfg, y_offset=0):
+    """The list kernel's visibility, its prep then its launch (the plain
+    version on the CPU): (tid, z, dropped). Called directly, as the
+    reference's is: dispatch streams instead past the SMEM budget."""
+    inp = smem.prepare_lists(tri, cfg, y_offset)
+    return (*smem.vis_lists(inp, cfg), inp.dropped)
+
+
 @pytest.fixture(scope="module")
 def small_tris():
     """config1 and config2 at 96x64 with 16-row tiles, as the reference's
@@ -96,8 +104,8 @@ def test_smem_matches_pallas_interpret(small_tris, preset, case):
     cfg = dataclasses.replace(base, **over)
     want = ref_smem.visibility_binned(rtri, cfg, y_offset=yo, interpret=True)
     kernels.reset_launches()
-    got = smem.visibility_binned(convert.tribuf_to_torch(rtri, "cpu"), convert.config_from(cfg),
-                                 y_offset=yo)
+    got = _lists_visibility(convert.tribuf_to_torch(rtri, "cpu"), convert.config_from(cfg),
+                            y_offset=yo)
     assert kernels.launches["vis_lists"] == 0  # CPU tensors: the plain version
     d = _check_vis(got, want)
     if case == "overflow" and preset == "config2":
@@ -112,7 +120,7 @@ def test_smem_large_bucket_matches_pallas_interpret():
     want = ref_smem.visibility_binned(rtri, cfg, interpret=True)
     tri, pcfg = convert.tribuf_to_torch(rtri, "cpu"), convert.config_from(cfg)
     assert int(smem.prepare_lists(tri, pcfg).large_count) > 0
-    _check_vis(smem.visibility_binned(tri, pcfg), want)
+    _check_vis(_lists_visibility(tri, pcfg), want)
 
 
 @pytest.mark.parametrize("preset", sorted(PRESETS))
@@ -218,5 +226,5 @@ def test_smem_z_tie_matches_pallas_interpret(terrain_tris):
     port pick the same (lower) id."""
     rtri, cfg = terrain_tris[True]
     want = ref_smem.visibility_binned(rtri, cfg, interpret=True)
-    got = smem.visibility_binned(convert.tribuf_to_torch(rtri, "cpu"), convert.config_from(cfg))
+    got = _lists_visibility(convert.tribuf_to_torch(rtri, "cpu"), convert.config_from(cfg))
     assert _check_vis(got, want) == 0

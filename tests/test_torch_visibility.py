@@ -31,7 +31,7 @@ from xr.raster import pallas_stream as ref_stream
 from xr.scene import presets as ref_presets
 from xr.scene import procedural as ref_proc
 from xr_torch import convert, kernels
-from xr_torch.raster import binning, records, stream
+from xr_torch.raster import binning, dispatch, records, stream
 from xr_torch.raster import common as rc
 
 # the suite runs several worker processes on shared cores: one torch
@@ -57,6 +57,13 @@ def _geometry(p):
     tri = ref_geometry(p.scene.replace(model_matrices=mm), jnp.asarray(view),
                        jnp.asarray(proj), p.config, xp=jnp)
     return tri, p.config
+
+
+def _stream_visibility(tri, cfg, y_offset=0):
+    """The stream backend's visibility as the port's dispatch runs it:
+    (tid, z, dropped)."""
+    cfg = dataclasses.replace(cfg, backend="pallas_stream", raster_path="binned")
+    return dispatch.visibility(tri, cfg, tri.capacity, y_offset)
 
 
 @pytest.fixture(scope="module")
@@ -96,7 +103,7 @@ def test_visibility_matches_pallas_interpret(ref_tri, case):
     cfg = dataclasses.replace(base, **over)
     rt, rz, rd = ref_stream.visibility_binned(rtri, cfg, y_offset=yo, interpret=True)
     kernels.reset_launches()
-    t, z, d = stream.visibility_binned(
+    t, z, d = _stream_visibility(
         convert.tribuf_to_torch(rtri, "cpu"), convert.config_from(cfg), y_offset=yo
     )
     assert kernels.launches["vis_stream"] == 0  # CPU tensors: the plain version
@@ -118,8 +125,8 @@ def test_band_matches_full_frame(ref_tri):
     rtri, base = ref_tri
     tri = convert.tribuf_to_torch(rtri, "cpu")
     cfg = convert.config_from(base)
-    tf, zf, _ = stream.visibility_binned(tri, cfg)
-    tb, zb, _ = stream.visibility_binned(tri, cfg.replace(height=32), y_offset=32)
+    tf, zf, _ = _stream_visibility(tri, cfg)
+    tb, zb, _ = _stream_visibility(tri, cfg.replace(height=32), y_offset=32)
     assert torch.equal(tb, tf[32:64]) and torch.equal(zb, zf[32:64])
 
 
@@ -196,8 +203,7 @@ def test_visibility_z_tie_matches_pallas_interpret(tie_tri):
     pick the same (lower) id; z within 1e-6 (XLA may contract the sum)."""
     rtri, cfg = tie_tri
     rt, rz, rd = ref_stream.visibility_binned(rtri, cfg, interpret=True)
-    t, z, d = stream.visibility_binned(convert.tribuf_to_torch(rtri, "cpu"),
-                                       convert.config_from(cfg))
+    t, z, d = _stream_visibility(convert.tribuf_to_torch(rtri, "cpu"), convert.config_from(cfg))
     rt, rz = np.asarray(rt), np.asarray(rz)
     assert (t.numpy() == rt).all() and int(d) == int(rd) == 0
     fin = np.isfinite(rz)

@@ -44,7 +44,7 @@ from xr.scene import procedural as ref_proc
 from xr_torch import convert, kernels
 from xr_torch.core import math3d as m3
 from xr_torch.core import types as ttypes
-from xr_torch.raster import records, stream
+from xr_torch.raster import dispatch, records, stream
 
 from tests.test_torch_zgate_live import ref_layers16
 
@@ -91,6 +91,13 @@ def _scene(name):
     return tri, dataclasses.replace(p.config, z_earlyout=True)
 
 
+def _stream_visibility(tri, cfg, y_offset=0):
+    """The stream backend's visibility as the port's dispatch runs it:
+    (tid, z, dropped)."""
+    cfg = dataclasses.replace(cfg, backend="pallas_stream", raster_path="binned")
+    return dispatch.visibility(tri, cfg, tri.capacity, y_offset)
+
+
 def _ref_visibility(rtri, cfg):
     """The reference's stream kernel in interpret mode, traced once under
     jit as its Renderer runs it (eager interpretation of the gated kernel
@@ -126,8 +133,7 @@ def test_gated_fold_matches_pallas_interpret(name, flags):
     cfg = _config(name, flags)
     rt, rz, rd = _ref_visibility(rtri, cfg)
     kernels.reset_launches()
-    t, z, d = stream.visibility_binned(convert.tribuf_to_torch(rtri, "cpu"),
-                                       convert.config_from(cfg))
+    t, z, d = _stream_visibility(convert.tribuf_to_torch(rtri, "cpu"), convert.config_from(cfg))
     assert not any(kernels.launches.values())  # CPU tensors: the plain version
     tg, zg, _ = _gated(name, flags)
     assert torch.equal(t, tg) and torch.equal(z.view(torch.int32), zg.view(torch.int32))

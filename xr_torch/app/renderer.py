@@ -5,7 +5,11 @@ step, strict readback and the ``Renderer`` that users drive.
 matrices, the shadow map's depth-only pass from the light (Phong with
 ``shadow_map_size``), geometry, binning, the visibility kernel, deferred
 shading, the blend pass (``blend``) and the u8 resolve — with shapes fixed
-by the config and no host read-back, so frames queue on the device.
+by the config, eagerly: the reference's function before ``jax.jit``. Its
+stages after the camera are ``frame_stages``; ``Renderer`` on a card
+captures them once as CUDA graphs (``CapturedFrame``, ``app/graph.py``)
+and replays them each frame, as the reference's Renderer jits it. Only
+the blend stage reads the card's values on the host (its live slots).
 ``readback_frame`` is the Present() replacement: a device-to-host copy that
 raises on any overflow counter and, under ``debug_checks``, names the first
 pipeline stage whose non-finite counter (``nf_*``) is not zero.
@@ -17,14 +21,18 @@ frame N-1 overlaps frame N.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from xr_torch import convert
+from xr_torch.app.graph import FrameProgram, Stage, StaticLeaves, run_stages, signature
 from xr_torch.core import math3d as m3
 from xr_torch.core import shade_math as sm
-from xr_torch.core.types import MODE_DEPTH_ONLY, MODE_PHONG, Frame, RenderConfig, Scene
+from xr_torch.core.types import (MODE_DEPTH_ONLY, MODE_PHONG, Camera, Frame, RenderConfig,
+                                  Scene)
 from xr_torch.pipeline.geometry import clip_capacity, geometry
 from xr_torch.pipeline.shadow import camera_matrices_np, light_matrices_for_scene
 from xr_torch.prof import span
@@ -86,13 +94,11 @@ def visible_triangles(scene, view, proj, config: RenderConfig, capacity: int):
 
 
 def depth_pass(scene, view, proj, config: RenderConfig, capacity: int):
-    """Geometry and visibility: (tri, tid, depth with 1.0 background,
-    bin_overflow)."""
-    with span("geometry"):
-        tri, vis_tri = visible_triangles(scene, view, proj, config, capacity)
-    tid, zbuf, bin_of = dispatch.visibility(vis_tri, config, capacity)
-    depth = torch.where(torch.isinf(zbuf), 1.0, zbuf)
-    return tri, tid, depth, bin_of
+    """Geometry and visibility (_pass_stages): (tri, tid, depth with 1.0
+    background, bin_overflow)."""
+    v = run_stages(_pass_stages(config, capacity, "", ()),
+                   {"scene": scene, "view": view, "proj": proj})
+    return v["tri"], v["tid"], v["depth"], v["bin_overflow"]
 
 
 def shadow_config(config: RenderConfig) -> RenderConfig:
@@ -107,18 +113,22 @@ def has_shadow_pass(config: RenderConfig) -> bool:
     return config.mode == MODE_PHONG and config.shadow_map_size > 0
 
 
+def _light_matrices(light_view, light_proj):
+    if light_view is None or light_proj is None:
+        raise ValueError("a Phong frame with a shadow map needs light_view and light_proj")
+    return {"light_view": light_view, "light_proj": light_proj}
+
+
 def shadow_pass(scene: Scene, config: RenderConfig, light_view, light_proj, capacity: int):
     """The shadow map: the depth-only pass from the light at
     shadow_map_size^2, with ``light_viewproj = proj @ view`` in fixed order
     (``xr/app/renderer.py:140-154``). Returns ({"shadow_depth",
     "light_viewproj"} for shading, bin_overflow)."""
-    if light_view is None or light_proj is None:
-        raise ValueError("a Phong frame with a shadow map needs light_view and light_proj")
     dev = scene.mesh.positions.device
-    lv = convert.tensor(light_view, dev, torch.float32)
-    lp = convert.tensor(light_proj, dev, torch.float32)
-    _, _, shadow_depth, bin_of = depth_pass(scene, lv, lp, shadow_config(config), capacity)
-    return {"shadow_depth": shadow_depth, "light_viewproj": m3.matmul(lp, lv)}, bin_of
+    v = {k: convert.tensor(m, dev, torch.float32)
+         for k, m in _light_matrices(light_view, light_proj).items()}
+    v = run_stages(_shadow_stages(config, capacity, ()), {"scene": scene, **v})
+    return v["shadow"], v["light_bin_overflow"]
 
 
 def shade(tri, tid, scene: Scene, config: RenderConfig, eye, shadow: dict, shade_hook=None,
@@ -138,14 +148,133 @@ def blend_pass(rgb, depth, tri, scene: Scene, config: RenderConfig, eye, shadow:
                                        live=live, **shadow)
 
 
+def frame_inputs(scene: Scene, camera, config: RenderConfig, light_view=None,
+                 light_proj=None) -> dict:
+    """The frame's inputs on the scene's device: scene, cam (the camera
+    with tensor leaves), view and proj, and with a shadow pass light_view
+    and light_proj (f32)."""
+    cam, view, proj = camera_matrices(scene, camera, config)
+    values = {"scene": scene, "cam": cam, "view": view, "proj": proj}
+    if has_shadow_pass(config):
+        dev = scene.mesh.positions.device
+        values.update({k: convert.tensor(m, dev, torch.float32)
+                       for k, m in _light_matrices(light_view, light_proj).items()})
+    return values
+
+
+def frame_stages(config: RenderConfig, capacity: int, shade_hook=None) -> list:
+    """render_step's stages after the camera, in order (graph.Stage: the
+    spans it runs under and a function of the frame's values so far,
+    frame_inputs' first, that returns new ones): the shadow pass's
+    geometry, visibility steps and maps (under shadow_pass); the camera
+    pass's geometry and visibility steps and its depth; shade, blend (it
+    reads the live transparent slots on the host: the one stage that is
+    never captured) and resolve; then the stats. The frame is the values
+    color, depth and stats."""
+    stages = []
+    shaded = config.width * config.height
+    if has_shadow_pass(config):
+        stages += _shadow_stages(config, capacity, ("shadow_pass",))
+        shaded += config.shadow_map_size * config.shadow_map_size
+    stages += _pass_stages(config, capacity, "", ())
+    if config.mode != MODE_DEPTH_ONLY:
+        stages.append(Stage(("shade",), functools.partial(_shade, config=config,
+                                                           shade_hook=shade_hook)))
+        if config.blend:
+            stages.append(Stage(("blend",), functools.partial(_blend, config=config),
+                                host=True))
+        stages.append(Stage(("resolve",), lambda v: {"color": sm.resolve_u8(v["rgb"])}))
+    stages.append(Stage((), functools.partial(_stats, config=config, shaded=shaded)))
+    return stages
+
+
+def _pass_stages(config: RenderConfig, capacity: int, prefix: str, outer: tuple) -> list:
+    """depth_pass as stages, from the values prefix + view and proj:
+    geometry, then visibility's steps (raster.dispatch.visibility_steps),
+    then prefix + tri, tid, depth (1.0 background) and bin_overflow."""
+
+    def geometry_(v):
+        tri, vis_tri = visible_triangles(v["scene"], v[prefix + "view"], v[prefix + "proj"],
+                                         config, capacity)
+        return {prefix + "tri": tri, prefix + "vis": vis_tri}
+
+    def step(fn):
+        return lambda v: {prefix + "vis": fn(v[prefix + "vis"])}
+
+    def depth_(v):
+        tid, zbuf, bin_of = v[prefix + "vis"]
+        return {prefix + "vis": None, prefix + "tid": tid, prefix + "bin_overflow": bin_of,
+                prefix + "depth": torch.where(torch.isinf(zbuf), 1.0, zbuf)}
+
+    return ([Stage(outer + ("geometry",), geometry_)]
+            + [Stage(outer + ((name,) if name else ()), step(fn))
+               for name, fn in dispatch.visibility_steps(config, capacity)]
+            + [Stage(outer, depth_)])
+
+
+def _shadow_stages(config: RenderConfig, capacity: int, outer: tuple) -> list:
+    """The shadow pass as stages, from the values light_view and
+    light_proj: the depth-only pass, then the maps shading reads."""
+    return (_pass_stages(shadow_config(config), capacity, "light_", outer)
+            + [Stage(outer, _shadow_maps)])
+
+
+def _shadow_maps(v) -> dict:
+    """What shading reads of the shadow pass: its depth and
+    ``light_viewproj = proj @ view`` in fixed order (``xr/app/renderer.py:140-154``)."""
+    shadow = {"shadow_depth": v["light_depth"],
+              "light_viewproj": m3.matmul(v["light_proj"], v["light_view"])}
+    return {"shadow": shadow, "light_tri": None, "light_tid": None}
+
+
+def _shade(v, config, shade_hook) -> dict:
+    return {"rgb": shade(v["tri"], v["tid"], v["scene"], config, v["cam"].eye,
+                         v.get("shadow", {}), shade_hook, v["depth"])}
+
+
+def _blend(v, config) -> dict:
+    rgb, overflow = blend_pass(v["rgb"], v["depth"], v["tri"], v["scene"], config, v["cam"].eye,
+                               v.get("shadow", {}))
+    return {"rgb": rgb, "blend_overflow": overflow}
+
+
+def _stats(v, config, shaded: int) -> dict:
+    """The frame's stats (and, depth only, its black color); tris_in and
+    fragments_shaded are constants of the device (convert.constant)."""
+    scene, tri, depth = v["scene"], v["tri"], v["depth"]
+    dev = depth.device
+    bin_of = v["bin_overflow"]
+    if "light_bin_overflow" in v:
+        bin_of = bin_of + v["light_bin_overflow"]
+    stats = {
+        "tris_in": convert.constant(scene.mesh.num_triangles, dev, torch.int32),
+        "tris_setup": tri.count,
+        "clip_overflow": tri.overflow,
+        "bin_overflow": bin_of,
+        "fragments_shaded": convert.constant(shaded, dev, torch.int32),
+        "covered_pixels": (depth < 1.0).sum(dtype=torch.int32),
+    }
+    if "blend_overflow" in v:
+        stats["blend_overflow"] = v["blend_overflow"]
+    out = {"stats": stats}
+    if config.mode == MODE_DEPTH_ONLY:
+        out["color"] = torch.zeros((config.height, config.width, 3), dtype=torch.uint8,
+                                   device=dev)
+    if config.debug_checks:
+        stats.update(sanitize_stats(scene, tri, depth, v.get("rgb")))
+    return out
+
+
 def render_step(scene: Scene, camera, config: RenderConfig, light_view=None,
                 light_proj=None, capacity: Optional[int] = None, out=None,
                 shade_hook=None) -> Frame:
-    """One frame on the scene's device (``xr/app/renderer.py:95-211``);
-    like the reference's, it ignores config.num_shards (screen bands are
-    xr_torch.dist.shard's). Stage by stage: camera_matrices, shadow_pass,
-    depth_pass, shade, blend_pass, resolve, each under a ``prof.span`` of its
-    name (depth_pass: geometry, then visibility's bin_prep and vis). camera:
+    """One frame on the scene's device (``xr/app/renderer.py:95-211``), run
+    eagerly: the counterpart of the reference's function before
+    ``jax.jit``, which ``Renderer`` captures on a card. Like the
+    reference's, it ignores config.num_shards (screen bands are
+    xr_torch.dist.shard's). Stage by stage: the camera (frame_inputs), then
+    frame_stages (the shadow pass, geometry, visibility's bin_prep and vis,
+    shade, blend, resolve), each under a ``prof.span`` of its name. camera:
     a Camera whose leaves are array-likes or tensors. light_view,
     light_proj: the shadow pass's (4, 4) matrices (see
     xr_torch.pipeline.shadow), required for Phong with shadow_map_size > 0.
@@ -154,45 +283,15 @@ def render_step(scene: Scene, camera, config: RenderConfig, light_view=None,
     ``hook(color, scene, mat_id, torch[, frag=Frag])`` on the (N, 3) linear
     color before the background (xr_torch.shading.deferred). Under
     config.debug_checks the stats gain the nf_* counters."""
-    dev = scene.mesh.positions.device
     cap = capacity or clip_capacity(scene.mesh.num_triangles, config)
     with span("camera"):
-        cam, view, proj = camera_matrices(scene, camera, config)
-
-    shadow, s_bin_of = {}, torch.zeros((), dtype=torch.int32, device=dev)
-    shaded = config.width * config.height
-    if has_shadow_pass(config):
-        with span("shadow_pass"):
-            shadow, s_bin_of = shadow_pass(scene, config, light_view, light_proj, cap)
-        shaded += config.shadow_map_size * config.shadow_map_size
-
-    tri, tid, depth, bin_of = depth_pass(scene, view, proj, config, cap)
-    stats = {
-        "tris_in": torch.tensor(scene.mesh.num_triangles, dtype=torch.int32, device=dev),
-        "tris_setup": tri.count,
-        "clip_overflow": tri.overflow,
-        "bin_overflow": bin_of + s_bin_of,
-        "fragments_shaded": torch.tensor(shaded, dtype=torch.int32, device=dev),
-        "covered_pixels": (depth < 1.0).sum(dtype=torch.int32),
-    }
-    rgb = None
-    if config.mode == MODE_DEPTH_ONLY:
-        color = torch.zeros((config.height, config.width, 3), dtype=torch.uint8, device=dev)
-    else:
-        with span("shade"):
-            rgb = shade(tri, tid, scene, config, cam.eye, shadow, shade_hook, depth)
-        if config.blend:
-            with span("blend"):
-                rgb, stats["blend_overflow"] = blend_pass(rgb, depth, tri, scene, config,
-                                                          cam.eye, shadow)
-        with span("resolve"):
-            color = sm.resolve_u8(rgb)
-    if config.debug_checks:
-        stats.update(sanitize_stats(scene, tri, depth, rgb))
+        values = frame_inputs(scene, camera, config, light_view, light_proj)
+    values = run_stages(frame_stages(config, cap, shade_hook), values)
+    color, depth = values["color"], values["depth"]
     if out is not None:
         color = out[0].copy_(color)
         depth = out[1].copy_(depth)
-    return Frame(color=color, depth=depth, stats=stats)
+    return Frame(color=color, depth=depth, stats=values["stats"])
 
 
 def _host(t: torch.Tensor):
@@ -326,8 +425,87 @@ class FramebufferPool(PresentMixin):
         )
 
 
+CAMERA_LEAVES = ("eye", "target", "up", "fov_y", "near", "far")
+
+
+def host_inputs(camera, config: RenderConfig, light_view=None, light_proj=None) -> dict:
+    """What FrameInputs stages for a frame, on the host: view and proj
+    (built in numpy, F12), the camera's leaves and, with a shadow pass, the
+    light matrices."""
+    view, proj = camera_matrices_np(camera, config.width / config.height)
+    host = {"view": view, "proj": proj, **{f: getattr(camera, f) for f in CAMERA_LEAVES}}
+    if has_shadow_pass(config):
+        host.update(_light_matrices(light_view, light_proj))
+    return host
+
+
+def _pack_stats(v) -> dict:
+    return {"stats_vec": torch.stack(list(v["stats"].values()))}
+
+
+class FrameInputs:
+    """The static inputs a frame is captured on, which ``load`` refills
+    before each replay: the scene's leaves in tensors of their own
+    (graph.StaticLeaves), and view and proj (built on the host, F12), the
+    camera's six leaves and the light matrices in one device buffer, which
+    a ring of pinned buffers fills without blocking (convert.StagingRing).
+    ``values``: frame_stages' inputs. host: a first frame's host_inputs."""
+
+    def __init__(self, scene: Scene, host: dict, device):
+        self.scene = StaticLeaves(scene)
+        self.staging = convert.StagingRing({k: tuple(np.shape(v)) for k, v in host.items()},
+                                           device)
+        self.load(scene, host)
+        t = self.staging.tensors
+        self.values = {"scene": self.scene.tree, "view": t["view"], "proj": t["proj"],
+                       "cam": Camera(**{f: t[f] for f in CAMERA_LEAVES})}
+        self.values.update({k: t[k] for k in ("light_view", "light_proj") if k in t})
+
+    def load(self, scene: Scene, host: dict) -> None:
+        self.scene.load(scene)
+        self.staging.load(host)
+
+
+class CapturedFrame:
+    """Renderer's frame on a card: frame_stages captured by a FrameProgram
+    on FrameInputs. The last graph also packs the stats into one vector,
+    which ``frame`` copies out once."""
+
+    def __init__(self, scene: Scene, host: dict, config: RenderConfig, capacity: int,
+                 shade_hook, device):
+        self.inputs = FrameInputs(scene, host, device)
+        stages = frame_stages(config, capacity, shade_hook) + [Stage((), _pack_stats)]
+        self.program = FrameProgram(stages, self.inputs.values, device)
+
+    def frame(self, out=None) -> Frame:
+        """Replay the frame; its color and depth are copied into `out` (or
+        new tensors) and its stats into a vector of its own, so the Frame
+        outlives the next replay."""
+        v = self.program.replay()
+        own = v["stats_vec"].clone()
+        stats = {k: own[i] for i, k in enumerate(v["stats"])}
+        if out is None:
+            return Frame(color=v["color"].clone(), depth=v["depth"].clone(), stats=stats)
+        return Frame(color=out[0].copy_(v["color"]), depth=out[1].copy_(v["depth"]),
+                     stats=stats)
+
+
 class Renderer(FramebufferPool):
     """Renders frames of one scene and config on an explicit device.
+
+    On a CUDA device the first ``step`` captures the frame and every later
+    one replays it (``CapturedFrame``; ``xr/app/renderer.py:326-332`` jits
+    render_step): one CUDA graph per stage span, with no copy from the host
+    but the camera's and no read of the card's values on the host, apart
+    from the blend stage, which reads its live transparent slots and runs
+    eagerly. A scene in the same tensors replays as it is (edits in place
+    are seen); one of the same shapes in other tensors is copied into the
+    captured inputs first; another shape or config captures anew, as
+    ``jit`` retraces. A capture or replay that fails raises, naming the
+    stage. A frame equals ``render_step``'s bit for bit, which runs the
+    same stages eagerly and is what ``step`` runs on the CPU. A new
+    Renderer is the way to change the config or shade_hook (the
+    reference's PSO rebuild).
 
     The shadow pass's light matrices are fit to the scene given here, once,
     on the host (``xr/app/renderer.py:324-325``); ``step`` takes an
@@ -362,6 +540,8 @@ class Renderer(FramebufferPool):
         self._copy = None
         self._pool = []
         self._light = light_matrices_for_scene(scene) if has_shadow_pass(config) else None
+        self._captured = None
+        self._key = None
 
     def step(self, scene: Scene, camera, light_matrices=None) -> Frame:
         """Render one frame. scene: tensors on this renderer's device (see
@@ -375,7 +555,17 @@ class Renderer(FramebufferPool):
                 f"scene is on {dev}, renderer on {self.device}"
             )
         lv, lp = light_matrices or self._light or (None, None)
-        return render_step(scene, camera, self.config, light_view=lv, light_proj=lp,
-                           capacity=self.capacity, out=self._out(dev),
-                           shade_hook=self._hook)
-
+        if dev.type != "cuda":
+            return render_step(scene, camera, self.config, light_view=lv, light_proj=lp,
+                               capacity=self.capacity, out=self._out(dev),
+                               shade_hook=self._hook)
+        host = host_inputs(camera, self.config, lv, lp)
+        key = (signature(scene), tuple(tuple(np.shape(v)) for v in host.values()))
+        if key != self._key:
+            self._captured = self._key = None  # the old graphs go before the new
+            self._captured = CapturedFrame(scene, host, self.config, self.capacity,
+                                           self._hook, dev)
+            self._key = key
+        with span("camera"):
+            self._captured.inputs.load(scene, host)
+        return self._captured.frame(self._out(dev))

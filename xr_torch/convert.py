@@ -11,6 +11,7 @@ the reference package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -38,6 +39,69 @@ def tensor(x, device, dtype=None) -> torch.Tensor:
         a = a.copy(order="C")
     t = torch.from_numpy(a).to(device)
     return t if dtype is None else t.to(dtype)
+
+
+def _frozen(x):
+    return tuple(map(_frozen, x)) if isinstance(x, (list, tuple)) else x
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values, dtype, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A tensor of fixed host values (numbers or nested lists of them) on
+    `device`, made once per (values, dtype, device) and shared by every
+    caller afterwards: never write into it. A frame takes its constants
+    from here, so no frame copies them from the host again, and a captured
+    frame reads them where they lie."""
+    return _constant(_frozen(values), dtype, torch.device(device))
+
+
+class StagingRing:
+    """Static f32 tensors on a device that the host refills each frame:
+    the named values are written into one of two pinned host buffers and
+    copied to one device buffer without blocking (the tensors are views of
+    it). A buffer is written again only after its last copy is done (an
+    event each), so the host never overwrites a copy in flight while a
+    frame is presented and the next one queued. On the CPU the values are
+    written into the tensors directly."""
+
+    def __init__(self, shapes: dict, device):
+        self.device = torch.device(device)
+        sizes = [int(np.prod(s)) for s in shapes.values()]
+        ends = np.cumsum(sizes)
+        self._slots = {k: (int(e - n), tuple(s)) for k, s, n, e in
+                       zip(shapes, shapes.values(), sizes, ends)}
+        n = int(ends[-1]) if sizes else 0
+        self._buf = torch.zeros((n,), dtype=torch.float32, device=self.device)
+        self.tensors = {k: self._buf[o : o + int(np.prod(s))].view(s)
+                        for k, (o, s) in self._slots.items()}
+        cuda = self.device.type == "cuda"
+        self._host = [torch.zeros((n,), dtype=torch.float32, pin_memory=True)
+                      for _ in range(2)] if cuda else [self._buf]
+        self._done = [None] * len(self._host)
+        self._next = 0
+
+    def load(self, values: dict) -> None:
+        """Write each named value (an array-like or a tensor of its slot's
+        size) into the tensors, in f32."""
+        i = self._next
+        self._next = (i + 1) % len(self._host)
+        if self._done[i] is not None:
+            self._done[i].synchronize()
+        host = self._host[i].numpy()
+        for k, (o, s) in self._slots.items():
+            v = to_numpy(values[k], np.float32).reshape(-1)
+            if v.size != int(np.prod(s)):
+                raise ValueError(f"{k}: {v.size} values, expected shape {s}")
+            host[o : o + v.size] = v
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                self._buf.copy_(self._host[i], non_blocking=True)
+                self._done[i] = torch.cuda.Event()
+                self._done[i].record()
 
 
 def to_numpy(x, dtype=None) -> np.ndarray:

@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from xr_torch.convert import constant
 from xr_torch.core import math3d as m3
 
 F32 = torch.float32
@@ -176,10 +177,8 @@ def sample_trilinear(pyramid, tex_id, u, v, lod, addr=None, mip_math: str = "tab
             return lo_flat[(tex_id * L + lk).long()]
     else:
         base = pyramid.base_size
-        sizes = torch.tensor([max(base >> k, 1) for k in range(L)], dtype=torch.int32, device=dev)
-        offsets = torch.tensor(
-            [pyramid.level_offset(k) for k in range(L)], dtype=torch.int32, device=dev
-        )
+        sizes = constant([max(base >> k, 1) for k in range(L)], dev, torch.int32)
+        offsets = constant([pyramid.level_offset(k) for k in range(L)], dev, torch.int32)
         P = pyramid.quads.shape[1]
 
         def size_at(lk):

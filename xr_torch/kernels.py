@@ -22,7 +22,12 @@ and flags, under ``build/xr_torch/`` at the repository root, which
 launch status raises: there is no fallback on a CUDA tensor.
 
 ``launches`` counts kernel launches per kernel name, so a run can show that
-a frame went through the kernel. Only the launch wrappers touch it.
+a frame went through the kernel. A launch wrapper counts a launch that runs;
+one called while a CUDA graph is captured records the kernel into the graph
+and counts nothing. A replayed graph launches the kernel nodes it holds
+without calling a wrapper: ``graph_launches`` reads the visibility kernels
+among them from the graph the driver built (its kernel nodes, by name), and
+each replay counts those (``count_replay``).
 """
 
 from __future__ import annotations
@@ -58,6 +63,101 @@ build_seconds = None  # wall time of the nvcc call in this process, if any
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+# the fold kernel of each visibility launch (the clear kernel before it is
+# not counted), by the words of its name, gated first: the gated kernel's
+# name holds the ungated one's
+KERNEL_NAMES = {"vis_stream_zgate": ("zgate_fold_kernel", "StreamWalk"),
+                "vis_stream": ("fold_kernel", "StreamWalk"),
+                "vis_lists": ("fold_kernel", "ListWalk")}
+
+
+def launch_name(kernel: str):
+    """The launches key of a device kernel's name (mangled or not), or
+    None for any other kernel."""
+    return next((k for k, words in KERNEL_NAMES.items() if all(w in kernel for w in words)),
+                None)
+
+
+def count_replay(counts: dict) -> None:
+    """Count one replay of a CUDA graph holding `counts` (graph_launches)."""
+    for k, n in counts.items():
+        launches[k] += n
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h)."""
+
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+_cu = None
+
+
+def _driver():
+    """The CUDA driver library, for what a graph under capture holds."""
+    global _cu
+    if _cu is None:
+        cu = ctypes.CDLL("libcuda.so.1")
+        ptr, size = ctypes.POINTER, ctypes.c_size_t
+        cu.cuStreamGetCaptureInfo_v2.argtypes = [
+            ctypes.c_void_p, ptr(ctypes.c_int), ptr(ctypes.c_uint64), ptr(ctypes.c_void_p),
+            ptr(ctypes.c_void_p), ptr(size)]
+        cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ptr(size)]
+        cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ptr(ctypes.c_int)]
+        # the v2 call where the driver has it; the v1 struct is the v2's head
+        cu.node_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or \
+            cu.cuGraphKernelNodeGetParams
+        cu.node_params.argtypes = [ctypes.c_void_p, ptr(_KernelNodeParams)]
+        cu.cuKernelGetName.argtypes = cu.cuFuncGetName.argtypes = [
+            ptr(ctypes.c_char_p), ctypes.c_void_p]
+        cu.cuGetErrorString.argtypes = [ctypes.c_int, ptr(ctypes.c_char_p)]
+        _cu = cu
+    return _cu
+
+
+def _cu_check(what: str, err: int) -> None:
+    if err != 0:
+        msg = ctypes.c_char_p()
+        _driver().cuGetErrorString(err, ctypes.byref(msg))
+        raise RuntimeError(f"{what} failed: {(msg.value or b'error %d' % err).decode()}")
+
+
+def graph_launches(stream) -> dict:
+    """The visibility kernels in the CUDA graph that `stream` is capturing,
+    by launches key (the kernel nodes recorded so far): what each replay of
+    the graph launches."""
+    cu, by = _driver(), ctypes.byref
+    status, graph = ctypes.c_int(), ctypes.c_void_p()
+    _cu_check("cuStreamGetCaptureInfo", cu.cuStreamGetCaptureInfo_v2(
+        stream.cuda_stream, by(status), by(ctypes.c_uint64()), by(graph),
+        by(ctypes.c_void_p()), by(ctypes.c_size_t())))
+    if status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        raise RuntimeError("graph_launches: the stream is not capturing")
+    n = ctypes.c_size_t()
+    _cu_check("cuGraphGetNodes", cu.cuGraphGetNodes(graph, None, by(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    _cu_check("cuGraphGetNodes", cu.cuGraphGetNodes(graph, nodes, by(n)))
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for node in nodes[: n.value]:
+        kind = ctypes.c_int()
+        _cu_check("cuGraphNodeGetType", cu.cuGraphNodeGetType(node, by(kind)))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params, name = _KernelNodeParams(), ctypes.c_char_p()
+        _cu_check("cuGraphKernelNodeGetParams", cu.node_params(node, by(params)))
+        if params.kern:
+            _cu_check("cuKernelGetName", cu.cuKernelGetName(by(name), params.kern))
+        else:
+            _cu_check("cuFuncGetName", cu.cuFuncGetName(by(name), params.func))
+        key = launch_name(name.value.decode())
+        if key is not None:
+            counts[key] += 1
+    return counts
 
 
 def _nvcc() -> str:
@@ -159,7 +259,8 @@ def _launch(name, fn, *args) -> None:
         raise RuntimeError(
             f"{name} launch failed: {library().xr_cuda_error_string(err).decode()}"
         )
-    launches[name] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches[name] += 1
 
 
 def _check_items(item_tile, item_start, ntiles, dev):

@@ -19,6 +19,7 @@ from typing import Any, Optional
 
 import torch
 
+from xr_torch.convert import constant
 from xr_torch.core import fixedpoint as fp
 from xr_torch.core import math3d as m3
 from xr_torch.core import shade_math as sm
@@ -86,9 +87,10 @@ def identity_layout(num_tris: int, config: RenderConfig, capacity: int) -> bool:
 
 
 def _plane_vectors(guard: float, device) -> torch.Tensor:
-    """The 6 clip planes as (6,4) rows p, kept where dot(p, clip) >= 0."""
+    """The 6 clip planes as (6,4) rows p, kept where dot(p, clip) >= 0 (a
+    shared constant of the device: convert.constant)."""
     g = float(guard)
-    return torch.tensor(
+    return constant(
         [
             [0.0, 0.0, 1.0, 0.0],  # near: z >= 0
             [0.0, 0.0, -1.0, 1.0],  # far: w - z >= 0
@@ -97,8 +99,7 @@ def _plane_vectors(guard: float, device) -> torch.Tensor:
             [0.0, 1.0, 0.0, g],  # y-: y + g*w >= 0
             [0.0, -1.0, 0.0, g],  # y+: g*w - y >= 0
         ],
-        dtype=F32,
-        device=device,
+        device,
     )
 
 
@@ -164,7 +165,7 @@ def _vert_mat(mesh) -> torch.Tensor:
         return mesh.vert_mat
     big = 2**30
     out = torch.full((mesh.num_vertices,), big, dtype=I32, device=mesh.indices.device)
-    val = mesh.material_id.repeat_interleave(3)
+    val = mesh.material_id[:, None].expand(-1, 3).reshape(-1)
     out = out.scatter_reduce(0, mesh.indices.reshape(-1).long(), val, "amin")
     return torch.where(out == big, 0, out)
 
@@ -212,9 +213,10 @@ def _vertex_stage(scene: Scene, view, proj, config: RenderConfig):
 
 def _swap_v12(arr, flip):
     """Swap vertices 1 and 2 where flip; arr is (..., 3) or (..., 3, A)."""
+    swap = constant([0, 2, 1], arr.device, torch.int64)  # an index list would copy per call
     if arr.ndim == flip.ndim + 1:
-        return torch.where(flip[..., None], arr[..., [0, 2, 1]], arr)
-    return torch.where(flip[..., None, None], arr[..., [0, 2, 1], :], arr)
+        return torch.where(flip[..., None], arr[..., swap], arr)
+    return torch.where(flip[..., None, None], arr[..., swap, :], arr)
 
 
 def _project_snap(fpos, fattr, config: RenderConfig):

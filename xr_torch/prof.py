@@ -67,6 +67,16 @@ def span(name: str):
 
 
 @contextlib.contextmanager
+def spans(names):
+    """The spans `names`, outermost first, nested (none for an empty
+    list)."""
+    with contextlib.ExitStack() as stack:
+        for n in names:
+            stack.enter_context(span(n))
+        yield
+
+
+@contextlib.contextmanager
 def torch_trace(log_dir: str):
     """Trace the block with torch.profiler (CPU, and CUDA where a card is
     present) and write it as a Chrome trace, ``log_dir/trace.json``

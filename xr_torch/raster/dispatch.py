@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from xr_torch.core.types import RenderConfig
+from xr_torch.prof import spans
 from xr_torch.raster import lists, smem, stream
 from xr_torch.raster.records import NFIELDS
 
@@ -45,14 +46,22 @@ def _smem_bytes(config: RenderConfig) -> int:
     return small + large
 
 
-def visibility(tri, config: RenderConfig, capacity: int, y_offset: int = 0):
-    """Returns (tid (H,W) i32, zbuf (H,W) f32 +inf background, bin_overflow)."""
+def visibility_steps(config: RenderConfig, capacity: int, y_offset: int = 0) -> list:
+    """The visibility of `config`'s path and backend as steps, each (the
+    ``prof.span`` it runs under or None, fn): the first fn takes the
+    triangles, each later one the value of the step before, and the last
+    returns (tid (H,W) i32, zbuf (H,W) f32 +inf background, bin_overflow).
+    The kernels' backends have two, bin_prep then vis; brute force and the
+    ``jnp`` lists run as one step outside any span."""
     path = config.raster_path
     if path == "auto":
         path = "brute" if capacity <= 2048 else "binned"
     if path == "brute":
-        tid, zbuf = lists.visibility_brute(tri, config, y_offset=y_offset)
-        return tid, zbuf, torch.zeros((), dtype=torch.int32, device=tid.device)
+        def brute(tri):
+            tid, zbuf = lists.visibility_brute(tri, config, y_offset=y_offset)
+            return tid, zbuf, torch.zeros((), dtype=torch.int32, device=tid.device)
+
+        return [(None, brute)]
 
     backend = config.backend
     if backend == "auto":
@@ -60,7 +69,20 @@ def visibility(tri, config: RenderConfig, capacity: int, y_offset: int = 0):
     if backend == "pallas_smem" and _smem_bytes(config) > SMEM_BUDGET:
         backend = "pallas_stream"
     if backend == "pallas_stream":
-        return stream.visibility_binned(tri, config, y_offset=y_offset)
-    if backend == "pallas_smem":
-        return smem.visibility_binned(tri, config, y_offset=y_offset)
-    return lists.visibility_binned(tri, config, y_offset=y_offset)
+        prepare, launch = stream.prepare, stream.vis_stream
+    elif backend == "pallas_smem":
+        prepare, launch = smem.prepare_lists, smem.vis_lists
+    else:
+        return [(None, lambda tri: lists.visibility_binned(tri, config, y_offset=y_offset))]
+    return [("bin_prep", lambda tri: prepare(tri, config, y_offset)),
+            ("vis", lambda inp: (*launch(inp, config), inp.dropped))]
+
+
+def visibility(tri, config: RenderConfig, capacity: int, y_offset: int = 0):
+    """Returns (tid (H,W) i32, zbuf (H,W) f32 +inf background, bin_overflow):
+    the steps of visibility_steps in order, each under its span."""
+    out = tri
+    for name, fn in visibility_steps(config, capacity, y_offset):
+        with spans((name,) if name else ()):
+            out = fn(out)
+    return out

@@ -68,13 +68,17 @@ def visibility_binned(
     zb, tb = rc.new_carry((ntiles, config.tile_h, config.tile_w), config.depth_test, dev)
 
     zero = torch.zeros((1,), dtype=I32, device=dev)
+    # the trip counts are the data's (one host read), but under a CUDA
+    # graph's capture, which cannot read it, the capacities, as the
+    # reference's jitted lax.scan over the lists runs them
+    capturing = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
     segments = (
-        (b.large_ids, zero, b.large_count.reshape(1)),
+        (b.large_ids, zero, b.large_count.reshape(1), b.large_ids.shape[0]),
         (b.lists.reshape(-1), torch.arange(ntiles, dtype=I32, device=dev) * b.lists.shape[1],
-         b.counts),
+         b.counts, b.lists.shape[1]),
     )
-    for ids, starts, n in segments:
-        for cids in id_chunks(ids, starts, n, C):
+    for ids, starts, n, cap in segments:
+        for cids in id_chunks(ids, starts, n, C, bound=cap if capturing else None):
             safe = torch.clamp_max(cids, C - 1).long()
 
             def at(a):

@@ -270,13 +270,16 @@ def fold_plain_gated(rec, large_ids, large_count, sid, starts, n, config: Render
     return (*_finish(zb, tb, config, tile_ran), out)
 
 
-def id_chunks(ids: torch.Tensor, starts: torch.Tensor, n: torch.Tensor, C: int, stride=1):
+def id_chunks(ids: torch.Tensor, starts: torch.Tensor, n: torch.Tensor, C: int, stride=1,
+              bound=None):
     """The segments ids[starts[i] : starts[i] + n[i]] of a flat id array,
     PLAIN_CHUNK entries at a time: (rows, PLAIN_CHUNK) i32 chunks with the
     empty slot C past each segment's end. With a stride (an int or a (rows,)
     tensor) entry k of row i is ids[starts[i] + k * stride[i]]. The trip
-    count is read from the data (one host read)."""
-    n_max = int(n.max()) if n.numel() else 0
+    count is read from the data (one host read), or is ceil(bound /
+    PLAIN_CHUNK) where a bound on every n[i] is given: the chunks past the
+    longest segment are empty, and folding one changes nothing."""
+    n_max = bound if bound is not None else int(n.max()) if n.numel() else 0
     j = torch.arange(PLAIN_CHUNK, dtype=I32, device=ids.device)[None, :]
     if isinstance(stride, torch.Tensor):
         stride = stride[:, None]

@@ -21,13 +21,12 @@ tensors it launches the kernel, and raises if that fails.
 from __future__ import annotations
 
 import itertools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import torch
 
 from xr_torch import kernels
 from xr_torch.core.types import RenderConfig
-from xr_torch.prof import span
 from xr_torch.pipeline.geometry import TriBuf
 from xr_torch.raster.binning import bin_triangles, grid_dims
 from xr_torch.raster.records import (
@@ -101,14 +100,3 @@ def vis_lists(inp: ListsInputs, config: RenderConfig):
         depth_test=config.depth_test,
     )
 
-
-def visibility_binned(
-    tri: TriBuf, config: RenderConfig, y_offset: int = 0
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (tid (H,W) i32, zbuf (H,W) f32 with +inf background,
-    dropped () i32) — the reference's visibility contract."""
-    with span("bin_prep"):
-        inp = prepare_lists(tri, config, y_offset)
-    with span("vis"):
-        tid, z = vis_lists(inp, config)
-    return tid, z, inp.dropped

@@ -34,13 +34,12 @@ tensors it launches the kernel, and raises if that fails.
 from __future__ import annotations
 
 import itertools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from xr_torch import kernels
 from xr_torch.core.types import RenderConfig
-from xr_torch.prof import span
 from xr_torch.pipeline.geometry import MAX_FAN, TriBuf, clip_budget
 from xr_torch.raster.binning import bin_triangles, grid_dims
 from xr_torch.raster.records import (
@@ -167,14 +166,3 @@ def vis_stream(inp: StreamInputs, config: RenderConfig):
         chunk_gate=gated(config) and config.z_chunk_gate,
     )
 
-
-def visibility_binned(
-    tri: TriBuf, config: RenderConfig, y_offset: int = 0
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (tid (H,W) i32, zbuf (H,W) f32 with +inf background,
-    dropped () i32) — the reference's visibility contract."""
-    with span("bin_prep"):
-        inp = prepare(tri, config, y_offset)
-    with span("vis"):
-        tid, z = vis_stream(inp, config)
-    return tid, z, inp.dropped

@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from xr_torch import convert
 from xr_torch.core import fixedpoint as fp
 from xr_torch.core import math3d as m3
 from xr_torch.core import shade_math as sm
@@ -167,7 +168,7 @@ def composite_transparent(color, depth, tri, scene: Scene, config: RenderConfig,
     if live is None:
         live = live_records(tri, scene, config)
 
-    eye = torch.as_tensor(eye, dtype=F32, device=dev)
+    eye = convert.tensor(eye, dev, F32)
     out = None
     for c, (y0, y1, x0, x1) in enumerate(live.boxes):
         y0, y1 = max(y0, y_offset), min(y1, y_offset + H)

@@ -22,6 +22,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from xr_torch import convert
 from xr_torch.core import fixedpoint as fp
 from xr_torch.core import math3d as m3
 from xr_torch.core import shade_math as sm
@@ -71,8 +72,9 @@ def _lod_terms(tri, uv_slot: int, config: RenderConfig):
     sub = float(config.subpixel)
     a, b = fp.edge_coeffs(tri.xs, tri.ys)
     # the edge opposite vertex k is edge (k+1) % 3
-    a_opp = a[:, [1, 2, 0]].to(F32)
-    b_opp = b[:, [1, 2, 0]].to(F32)
+    opp = convert.constant([1, 2, 0], a.device, torch.int64)  # not a list: no copy per call
+    a_opp = a[:, opp].to(F32)
+    b_opp = b[:, opp].to(F32)
     uw = tri.attr_w[:, :, uv_slot]
     vw = tri.attr_w[:, :, uv_slot + 1]
     iw = tri.inv_w
@@ -142,7 +144,7 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig,
     tid = tid.reshape(-1)
     bg = tid == BG_TRI_ID
     t = torch.where(bg, 0, tid).long()
-    bgc = torch.tensor(config.bg_color, dtype=F32, device=tid.device)
+    bgc = convert.constant(config.bg_color, tid.device)
     wants_frag = shade_hook is not None and _hook_wants_frag(shade_hook)
 
     def finish(color, mat_id=None, uv=None, world=None, normal=None):
@@ -213,7 +215,7 @@ def shade_deferred(tri, tid: torch.Tensor, scene: Scene, config: RenderConfig,
     shadow = None
     if shadow_depth is not None and light_viewproj is not None:
         shadow = sm.shadow_test(shadow_depth, world, light_viewproj, config.shadow_bias)
-    eye = torch.as_tensor(eye, dtype=F32, device=tid.device)
+    eye = convert.tensor(eye, tid.device, F32)
     color = sm.shade_phong(world, normal, eye, base, mats.ka[mid], mats.kd[mid],
                            mats.ks[mid], mats.shininess[mid], scene.lights,
                            shadow_factor=shadow)
