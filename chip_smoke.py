@@ -132,9 +132,10 @@ Phases, each of which raises on failure (exit code != 0, no final line):
        its preset's four bands through ShardedRenderer on this card on the
        same cameras: the gated kernel four times a frame, every counter 0, tris_setup, color and depth
        those of the unbanded frames; prints the peak device memory of
-       each, a stage line of the banded frame (the per-device stages once,
-       the per-band stages summed over the four) and the ms/frame of the
-       two, unbanded and banded in turns; then the unbanded frames with
+       each, each stage's device ms a frame of the graphed banded and
+       unbanded frames (a torch.profiler trace of 5 frames each, read by
+       span as the benchmark reads a cell) and the ms/frame of the two,
+       unbanded and banded (graphed) in turns; then the unbanded frames with
        z_earlyout on (the gated kernel) and off (the ungated one) in turns,
        byte-equal, 3 rounds of 5 frames
      - config7 (177,920 triangles, the LOD terrain) at 1920x1080, 30 frames
@@ -156,7 +157,14 @@ Phases, each of which raises on failure (exit code != 0, no final line):
        then eager and graphed in turns, 3 rounds: host ms in the step call
        and ms a frame; then config3 with backend="jnp" at its own
        bin_capacity (3 t) the same way: its plain lists' fold loops as far
-       as the data goes in an eager frame, to the capacity in a captured one
+       as the data goes in an eager frame, to the capacity in a captured one;
+       then ShardedRenderer.step, which replays the banded frame it
+       captured at its first step (each kind of band work one graph),
+       against render_step_sharded's eager frames the same way, and
+       holding the unbanded Renderer's bytes: config5 in its preset's four
+       bands, config4b in four, config4 in two with backend "auto" and
+       "pallas_smem", and config4 in two with "jnp" (3 t: the fold to the
+       capacity once a band); also the eager frames' peak memory
      - the gather microbenchmarks: xr_torch.tools.probe_lanegather and
        xr_torch.tools.microbench_gather, as run from the command line
      prints ms/frame of each and the device time of each stage, timed on
@@ -175,7 +183,8 @@ Phases, each of which raises on failure (exit code != 0, no final line):
      there; prints the oracle's seconds and the CPU's name
   7. entry points, each as a user runs it, in a process of its own:
      ``python -m xr_torch.examples.run config5 --frames 5`` (the preset's
-     four bands on the card; exit 0, every counter 0 in its done event)
+     four bands on the card, graphed; exit 0, every counter 0 in its done
+     event; prints its ms a frame)
      and ``python -m xr_torch.tools.profile_frame config3 --frames 8``
      (its device ms/frame from the torch.profiler trace, its host ms/frame
      of the same frames and their ratio, the device's busy share);
@@ -1082,8 +1091,8 @@ def _log_run(label, cfg, ntris, times, launches) -> float:
     return ms
 
 
-def _log_stages(label, stages) -> None:
-    log(f"stage device time {label} (ms, CUDA events): "
+def _log_stages(label, stages, how: str = "CUDA events") -> None:
+    log(f"stage device time {label} (ms, {how}): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
         + f"; sum {sum(stages.values()):.3f}")
 
@@ -1295,7 +1304,12 @@ def phase_main_path(dev) -> dict:
              scene.mesh.num_triangles, times, launches)
     log(f"config5 in {n} bands: peak device memory {peak / 2**20:.1f} MiB "
         "(torch.cuda.max_memory_allocated)")
-    _log_stages(f"config5 in {n} bands t=3.0", _banded_stage_times(dev, p, cams[2], scene))
+    for label, tr in _banded_stage_times(dev, p, cams[:5], scene).items():
+        _log_stages(f"config5 {label}, graphed, t=1..5, a frame", tr["stage_ms"],
+                    "torch.profiler")
+        log(f"config5 {label}, graphed: device {tr['device_ms_per_frame']!r} ms a frame, "
+            f"busy share {tr['busy_share']!r}, stage host ms a frame "
+            + ", ".join(f"{k} {v:.3f}" for k, v in tr["stage_host_ms"].items()))
     _banded_turns(dev, p, scene, cams[:5])
     _gate_turns(dev, "config5", p, scene, cams[:5])
     del frames, got
@@ -1474,62 +1488,35 @@ def _same_bytes(label, banded, unbanded) -> None:
         "tris_setup; every counter 0")
 
 
-def _banded_stage_times(dev, p, cam, scene, reps=10) -> dict:
-    """Device time of each stage of one banded frame, by CUDA events, each
-    the function render_step_sharded calls: the per-device stages once
-    (camera, shadow_pass, geometry), the per-band stages summed over the
-    bands (the stream kernel's prepare and launch, shade, blend_pass,
-    resolve), then the gather of the bands and readback."""
-    from xr_torch.app import renderer
-    from xr_torch.core import shade_math as sm
-    from xr_torch.dist import shard
-    from xr_torch.pipeline.shadow import light_matrices_for_scene
-    from xr_torch.raster import stream
+def _banded_stage_times(dev, p, cams, scene) -> dict:
+    """Each stage's device ms a frame of the preset's graphed frames in its
+    bands (ShardedRenderer, all on dev) and unbanded (Renderer), read from
+    a torch.profiler trace of those frames the way the benchmark reads a
+    cell (bench_torch.layers: the device operations launched under each
+    stage's span, a replayed graph's under the span it replays in; the
+    readback's copy under readback). Returns {label: parse_trace's dict}."""
+    from types import SimpleNamespace
 
-    cfg = p.config
-    cap = _capacity(scene, cfg)
-    n = cfg.num_shards
-    _, hb, band = shard.band_config(cfg, n)
-    out = {"camera": cuda_ms(lambda: renderer.camera_matrices(scene, cam, cfg), reps)}
-    c, view, proj = renderer.camera_matrices(scene, cam, cfg)
-    light, shadow = (None, None), {}
-    if renderer.has_shadow_pass(cfg):
-        light = light_matrices_for_scene(scene)
-        out["shadow_pass"] = cuda_ms(lambda: renderer.shadow_pass(scene, cfg, *light, cap), reps)
-        shadow, _ = renderer.shadow_pass(scene, cfg, *light, cap)
-    out["geometry"] = cuda_ms(lambda: renderer.visible_triangles(scene, view, proj, cfg, cap), reps)
-    tri, vis_tri = renderer.visible_triangles(scene, view, proj, cfg, cap)
-    per_band = dict.fromkeys(["bin+prep", "vis_kernel", "shade"] + ["blend"] * cfg.blend
-                             + ["resolve"], 0.0)
-    colors, depths = [], []
-    for b in range(n):
-        yo = b * hb
-        inp = stream.prepare(vis_tri, band, yo)
-        per_band["bin+prep"] += cuda_ms(lambda: stream.prepare(vis_tri, band, yo), reps)
-        per_band["vis_kernel"] += cuda_ms(lambda: stream.vis_stream(inp, band), reps)
-        tid, zbuf = stream.vis_stream(inp, band)
-        depth = torch.where(torch.isinf(zbuf), 1.0, zbuf)
-        per_band["shade"] += cuda_ms(
-            lambda: renderer.shade(tri, tid, scene, band, c.eye, shadow, None, depth, yo), reps)
-        rgb = renderer.shade(tri, tid, scene, band, c.eye, shadow, None, depth, yo)
-        if cfg.blend:
-            per_band["blend"] += cuda_ms(
-                lambda: renderer.blend_pass(rgb, depth, tri, scene, band, c.eye, shadow, yo), reps)
-        per_band["resolve"] += cuda_ms(lambda: sm.resolve_u8(rgb), reps)
-        colors.append(sm.resolve_u8(rgb))
-        depths.append(depth)
-    out.update({f"{k} ({n} bands)": v for k, v in per_band.items()})
-    out["gather"] = cuda_ms(lambda: (torch.cat(colors)[:cfg.height],
-                                     torch.cat(depths)[:cfg.height]), reps)
-    frame = shard.render_step_sharded(scene, cam, cfg, [dev] * n, *light)
-    out["readback"] = cuda_ms(lambda: renderer.readback_frame(frame), reps)
+    from bench_torch import layers
+    from xr_torch import Renderer, ShardedRenderer
+
+    out = {}
+    for label, r in (("unbanded", Renderer(scene, p.config, dev)),
+                     (f"{p.config.num_shards} bands",
+                      ShardedRenderer(scene, p.config, devices=[dev]))):
+        r.readback(r.step(scene, cams[0]))  # the capture
+        outdir = os.path.join(ROOT, "build", "trace_" + label.replace(" ", "_"))
+        setup = SimpleNamespace(renderer=r, scene=scene)
+        out[label] = layers.parse_trace(layers.trace_window(setup, cams, False, outdir),
+                                        len(cams))
+        del r, setup
     return out
 
 
 def _banded_turns(dev, p, scene, cams, rounds=3) -> None:
     """config5's ms/frame unbanded (Renderer) and in its bands
-    (ShardedRenderer, one card), in turns, so the host clock's drift falls
-    on both alike."""
+    (ShardedRenderer, one card), both graphed, in turns, so the host
+    clock's drift falls on both alike."""
     ms = {"unbanded": [], f"{p.config.num_shards} bands": []}
     for _ in range(rounds):
         for label, banded in zip(ms, (False, True)):
@@ -1839,6 +1826,8 @@ def phase_entry_points() -> None:
     events = {e["event"]: e for e in map(json.loads, filter(None, out.splitlines()))}
     done = events["done"]
     log(f"run config5: first_frame {events['first_frame']}; done {done}")
+    log(f"run config5 in {done['num_shards']} bands (ShardedRenderer, graphed), "
+        f"{done['frames']} frames: {done['ms_per_frame']!r} ms a frame")
     if done["num_shards"] != 4 or done["frames"] != 5 or any(
             done["stats"][k] for k in ("clip_overflow", "bin_overflow")):
         raise AssertionError(f"run config5: {done}")
@@ -1879,13 +1868,25 @@ def phase_entry_points() -> None:
 
 
 def _eager_step(r, scene, cam):
-    """The frame Renderer r captures, run eagerly: render_step into r's
-    output buffers, as Renderer.step ran it before frames were captured."""
+    """The frame renderer r captures, run eagerly into r's output buffers,
+    as step ran it before frames were captured: render_step (Renderer) or
+    render_step_sharded (ShardedRenderer)."""
     from xr_torch.app.renderer import render_step
+    from xr_torch.dist.shard import ShardedRenderer, render_step_sharded
 
     lv, lp = r._light or (None, None)
+    if isinstance(r, ShardedRenderer):
+        return render_step_sharded(scene, cam, r.config, r.mesh, lv, lp, r.capacity, r._hook,
+                                   out=r._out(r.mesh[0]))
     return render_step(scene, cam, r.config, lv, lp, capacity=r.capacity,
                        out=r._out(scene.mesh.positions.device), shade_hook=r._hook)
+
+
+def _segments(r) -> list:
+    """The segments of the frame renderer r captured (every device's)."""
+    c = r._captured
+    return [s for prog in ([c.program] if hasattr(c, "program") else c.programs.values())
+            for s in prog.segments]
 
 
 def _graph_turns(r, scene, cams, present: bool, rounds: int = 3) -> dict:
@@ -1933,22 +1934,33 @@ def _graph_turns(r, scene, cams, present: bool, rounds: int = 3) -> dict:
     return out
 
 
-def _graphs_case(dev, name, preset, ts, present=False, **over) -> dict:
+def _graphs_case(dev, name, preset, ts, present=False, bands=0, **over) -> dict:
     """One case of phase_graphs: the preset as published at 1920x1080 (with
-    `over`) at the t of `ts`. Returns the launches of the graphed frames."""
+    `over`) at the t of `ts`; bands: that many screen bands through
+    ShardedRenderer on this card, whose frames must also hold the unbanded
+    Renderer's bytes. Returns the launches of the graphed frames."""
     from bench_torch.frames import failure
     from bench_torch.oracle import same_bytes
-    from xr_torch import Renderer
+    from xr_torch import Renderer, ShardedRenderer
     from xr_torch.app.renderer import readback_frame
 
     p, _, scene = _setup(dev, _preset(preset, full=True), 1920, 1080, 0.0, **over)
-    r = Renderer(scene, p.config, dev)
+    if bands:
+        cfg = dataclasses.replace(p.config, num_shards=bands)
+        r = ShardedRenderer(scene, cfg, devices=[dev])
+    else:
+        cfg = p.config
+        r = Renderer(scene, cfg, dev)
     cams = [p.animate(t)[0] for t in ts]
     eager, n_eager = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
     for cam in cams:
         f, n = _counted(lambda: readback_frame(_eager_step(r, scene, cam)))
         eager.append(f)
         n_eager.append(n)
+    peak_eager = torch.cuda.max_memory_allocated(dev) - base
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
@@ -1956,7 +1968,7 @@ def _graphs_case(dev, name, preset, ts, present=False, **over) -> dict:
     r.readback(r.step(scene, cams[0]))
     t_cap = time.perf_counter() - t_cap
     peak = torch.cuda.max_memory_allocated(dev) - base
-    segs = r._captured.program.segments
+    segs = _segments(r)
     total = dict.fromkeys(KERNELS, 0)
 
     def graphed(cam):
@@ -1966,24 +1978,32 @@ def _graphs_case(dev, name, preset, ts, present=False, **over) -> dict:
             return r.flush()
         return r.readback(r.step(scene, cam))
 
+    frames = []
     for i, cam in enumerate(cams):
         got, n_got = _counted(lambda: graphed(cam))
+        frames.append(got)
         for k, v in n_got.items():
             total[k] += v
-        reason = failure(got, p.config)
+        reason = failure(got, cfg)
         if reason or not same_bytes(got, eager[i]) or list(got.stats) != list(eager[i].stats):
             raise AssertionError(f"{name} t={ts[i]:.2f}: the graphed frame is not "
-                                 f"render_step's ({reason})")
+                                 f"the eager frame's ({reason})")
         if n_got != n_eager[i]:
             raise AssertionError(f"{name} t={ts[i]:.2f}: graphed launches {n_got}, eager "
                                  f"{n_eager[i]}")
+    if bands:
+        u = Renderer(scene, p.config, dev)
+        _same_bytes(f"graphs {name} against the unbanded Renderer", frames,
+                    [u.readback(u.step(scene, cam)) for cam in cams])
+        del u
     turns = _graph_turns(r, scene, cams, present)
+    eager_fn = "render_step_sharded" if bands else "render_step"
     log(f"graphs {name}: {len(ts)} frames (t {ts[0]:.2f}..{ts[-1]:.2f}) byte-equal to "
-        f"render_step's, launches a frame (eager and graphed alike) {n_eager[0]}; "
+        f"{eager_fn}'s, launches a frame (eager and graphed alike) {n_eager[0]}; "
         f"{sum(s.graph is not None for s in segs)} graphs a frame, eager "
         f"{[s.name for s in segs if s.graph is None]}; capture + first frame {t_cap:.3f} s; "
-        f"device memory of the capture at its peak {peak / 2**20:.1f} MiB above what was "
-        "allocated before it")
+        f"device memory at its peak above what was allocated before: the capture "
+        f"{peak / 2**20:.1f} MiB, the eager frames {peak_eager / 2**20:.1f} MiB")
     for mode in ("eager", "graphed"):
         log(f"graphs {name} {mode} (3 rounds in turns, medians of {len(ts)} frames): host ms "
             f"in step {turns[mode]['step']}, ms a frame {turns[mode]['frame']}, ms a frame "
@@ -2003,19 +2023,37 @@ def phase_graphs(dev) -> dict:
     of each. Then config3 with backend="jnp" at its own bin_capacity, 3 t:
     its plain lists' fold loops as far as the data goes in an eager frame
     and to the capacity in a captured one, which cannot read the data;
-    byte-equal and timed in turns the same way. Returns the launches of
-    the graphed frames."""
+    byte-equal and timed in turns the same way. Then ShardedRenderer.step
+    on this card the same way, against render_step_sharded's eager frames
+    and the unbanded Renderer's bytes: config5 in its preset's four bands
+    and config4b in four (their cells' t), config4 in two with both
+    kernels' backends (config4b's t), and config4 in two with
+    backend="jnp" (3 t: its fold to the capacity, once a band). Returns the
+    launches of the graphed frames."""
     from bench_torch.cells import CELLS, frame_t, t0
 
     total = dict.fromkeys(KERNELS, 0)
+
+    def cell_ts(preset, n=GRAPH_FRAMES):
+        cell = next(c for c in CELLS if c.preset == preset)
+        return [frame_t(t0(cell, 0), i) for i in range(n)]
+
     for cell in CELLS:
         t_first = t0(cell, 0)
         ts = [frame_t(t_first, i) for i in range(GRAPH_FRAMES)]
         for k, v in _graphs_case(dev, cell.name, cell.preset, ts, cell.present).items():
             total[k] += v
-    cell = next(c for c in CELLS if c.preset == "config3")
-    ts = [frame_t(t0(cell, 0), i) for i in range(3)]
-    _graphs_case(dev, "config3 backend=jnp", "config3", ts, backend="jnp")
+    _graphs_case(dev, "config3 backend=jnp", "config3", cell_ts("config3", 3), backend="jnp")
+    for name, preset, bands, ts, over in (
+            ("config5 in 4 bands", "config5", 4, cell_ts("config5"), {}),
+            ("config4b in 4 bands", "config4b", 4, cell_ts("config4b"), {}),
+            ("config4 in 2 bands", "config4", 2, cell_ts("config4b"), {}),
+            ("config4 in 2 bands backend=pallas_smem", "config4", 2, cell_ts("config4b"),
+             {"backend": "pallas_smem"}),
+            ("config4 in 2 bands backend=jnp", "config4", 2, cell_ts("config4b", 3),
+             {"backend": "jnp"})):
+        for k, v in _graphs_case(dev, name, preset, ts, bands=bands, **over).items():
+            total[k] += v
     return total
 
 

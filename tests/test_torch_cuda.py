@@ -36,7 +36,7 @@ import pytest
 import torch
 
 from xr_torch import Renderer, convert, kernels
-from xr_torch.app.renderer import shadow_config
+from xr_torch.app.renderer import has_shadow_pass, shadow_config
 from xr_torch.core import math3d as m3
 from xr_torch.dist import shard
 from xr_torch.pipeline.geometry import geometry
@@ -497,6 +497,7 @@ def test_banded_frame_on_the_card_equals_unbanded(cuda, name):
     cam, mm = p.animate(1.0)
     scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), cuda)
     s = shard.ShardedRenderer(scene, p.config, devices=[cuda])
+    s.readback(s.step(scene, cam))  # the step that captures (and counts its warm-up frame)
     kernels.reset_launches()
     banded = s.readback(s.step(scene, cam))
     b1 = "vis_stream_zgate" if stream.gated(p.config) else "vis_stream"  # config5: z_earlyout
@@ -836,3 +837,123 @@ def test_graphed_hook_reading_the_host_raises(cuda):
     r = Renderer(scene, p.config, cuda, shade_hook=host_read)
     with pytest.raises(RuntimeError, match="shade stage"):
         r.step(scene, p.animate(0.3)[0])
+
+
+BAND_GRAPH_CASES = {  # name: (preset, bands, overrides); golden size on one card
+    "config4-2": ("config4", 2, {}),
+    "config4-2-smem": ("config4", 2, {"backend": "pallas_smem"}),
+    "config4b-4": ("config4b", 4, {}),
+    "config5-4": ("config5", 4, {}),
+}
+
+
+def _band_graph_case(cuda, case, **renderer_kw):
+    """The case's preset in its bands at golden size, the scene on the
+    card, and a ShardedRenderer with every band on it."""
+    name, n, over = BAND_GRAPH_CASES[case]
+    p, _, scene = _scene(cuda, 1.0, GRAPH_PRESETS[name]())
+    cfg = dataclasses.replace(p.config, num_shards=n,
+                              shadow_map_size=min(p.config.shadow_map_size, 128), **over)
+    p = p._replace(config=cfg)
+    return p, scene, shard.ShardedRenderer(scene, cfg, devices=[cuda], **renderer_kw)
+
+
+def _eager_banded(s, scene, cam):
+    """render_step_sharded on what ShardedRenderer s renders, with the
+    launches it counts."""
+    lv, lp = s._light or (None, None)
+    kernels.reset_launches()
+    f = shard.render_step_sharded(scene, cam, s.config, s.mesh, lv, lp, s.capacity, s._hook)
+    torch.cuda.synchronize()
+    return f, dict(kernels.launches)
+
+
+def _graphed_banded(s, scene, cam):
+    kernels.reset_launches()
+    f = s.step(scene, cam)
+    torch.cuda.synchronize()
+    return f, dict(kernels.launches)
+
+
+@pytest.mark.parametrize("case", sorted(BAND_GRAPH_CASES))
+def test_graphed_banded_frame_equals_render_step_sharded(cuda, case):
+    """ShardedRenderer on the card captures its banded frame at its first
+    step and replays it: every frame equals render_step_sharded's eager
+    frame bit for bit, stats included, with the same visibility launches
+    a frame (B1 or B2 once a band, plus the shadow map's; config5's gated
+    B1 once a band), and the unbanded Renderer's color, depth and
+    tris_setup; only config4b's blend runs eagerly."""
+    p, scene, s = _band_graph_case(cuda, case)
+    n = p.config.num_shards
+    cam = p.animate(1.0)[0]
+    _bit_equal(s.step(scene, cam), _eager_banded(s, scene, cam)[0])  # the step that captures
+    r = Renderer(scene, p.config, cuda)
+    for t in (1.0, 1.7, 2.4):
+        cam = p.animate(t)[0]
+        got, n_got = _graphed_banded(s, scene, cam)
+        want, n_want = _eager_banded(s, scene, cam)
+        _bit_equal(got, want)
+        assert n_got == n_want
+        b = max(n_got, key=n_got.get)
+        assert n_got[b] == n + has_shadow_pass(p.config) == sum(n_got.values())
+        single = r.step(scene, cam)
+        assert torch.equal(got.color, single.color)
+        assert torch.equal(got.depth.view(torch.int32), single.depth.view(torch.int32))
+        assert int(got.stats["tris_setup"]) == int(single.stats["tris_setup"])
+    (program,) = s._captured.programs.values()
+    eager = [g.name for g in program.segments if g.graph is None]
+    assert eager == (["blend"] if p.config.blend else [])
+
+
+def test_graphed_banded_present_equals_readback(cuda):
+    """Six distinct cameras through a graphed ShardedRenderer's present/
+    flush equal its step + readback."""
+    p, scene, s = _band_graph_case(cuda, "config4-2")
+    cams = [p.animate(0.2 * i)[0] for i in range(6)]
+    want = [s.readback(s.step(scene, c)) for c in cams]
+    _, _, q = _band_graph_case(cuda, "config4-2")
+    got = [q.present(q.step(scene, c)) for c in cams][1:] + [q.flush()]
+    for g, w in zip(got, want):
+        assert np.array_equal(g.color, w.color) and np.array_equal(g.depth, w.depth)
+        assert {k: int(v) for k, v in g.stats.items()} == {k: int(v) for k, v in w.stats.items()}
+    assert len({w.color.tobytes() for w in want}) == len(cams)
+
+
+def test_graphed_banded_frames_without_recycling(cuda):
+    """recycle_framebuffers=False: every replayed banded frame has buffers
+    of its own, which later replays leave as they were."""
+    p, scene, s = _band_graph_case(cuda, "config5-4", recycle_framebuffers=False)
+    cams = [p.animate(t)[0] for t in (1.0, 2.0, 3.0)]
+    frames = [s.step(scene, c) for c in cams]
+    assert len({f.color.data_ptr() for f in frames} | {f.depth.data_ptr() for f in frames}) == 6
+    for f, c in zip(frames, cams):
+        _bit_equal(f, _eager_banded(s, scene, c)[0])
+    assert not s._pool
+
+
+def test_graphed_banded_scene_swap_and_reshape(cuda):
+    """A scene in other tensors of the same shapes is copied into the
+    captured inputs (the first scene renders again after it, its tensors
+    untouched); an edit in place is seen; a scene of other shapes captures
+    anew."""
+    p, scene, s = _band_graph_case(cuda, "config5-4")
+    cam = p.animate(1.5)[0]
+    first = s.step(scene, cam)
+    mm = scene.model_matrices.clone()
+    raised = mm.clone()
+    raised[:, 1, 3] += 0.25
+    other = scene.replace(model_matrices=raised)
+    got = s.step(other, cam)
+    _bit_equal(got, _eager_banded(s, other, cam)[0])
+    assert torch.equal(scene.model_matrices, mm) and not torch.equal(got.color, first.color)
+    _bit_equal(s.step(scene, cam), first)
+    captured = s._captured
+    scene.model_matrices.mul_(1.25)
+    _bit_equal(s.step(scene, cam), _eager_banded(s, scene, cam)[0])
+    scene.model_matrices.copy_(mm)
+    small = presets.config5_flythrough(48, 48)
+    small = convert.scene_to_torch(small.scene.replace(model_matrices=small.animate(1.5)[1]),
+                                   cuda)
+    assert small.mesh.num_triangles < scene.mesh.num_triangles
+    _bit_equal(s.step(small, cam), _eager_banded(s, small, cam)[0])
+    assert s._captured is not captured

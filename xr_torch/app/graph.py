@@ -149,10 +149,13 @@ class StaticLeaves:
     signature into them, skipping a leaf that is the same tensor as last
     time with no write since (its version counter), so the same scene
     costs nothing and a scene in other tensors, or one edited in place, is
-    seen. The caller's tensors are never written."""
+    seen. The caller's tensors are never written. device: where the held
+    tensors lie (default: each leaf's own device); a load copies across
+    devices."""
 
-    def __init__(self, tree):
-        self.tree = tree_map(torch.clone, tree)
+    def __init__(self, tree, device=None):
+        self.tree = tree_map(torch.clone if device is None
+                             else (lambda t: t.to(device, copy=True)), tree)
         self._dst = [t for t in leaves(self.tree) if isinstance(t, torch.Tensor)]
         self._src = [(t, t._version) for t in leaves(tree) if isinstance(t, torch.Tensor)]
 

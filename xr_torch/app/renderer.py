@@ -190,25 +190,49 @@ def frame_stages(config: RenderConfig, capacity: int, shade_hook=None) -> list:
 
 def _pass_stages(config: RenderConfig, capacity: int, prefix: str, outer: tuple) -> list:
     """depth_pass as stages, from the values prefix + view and proj:
-    geometry, then visibility's steps (raster.dispatch.visibility_steps),
-    then prefix + tri, tid, depth (1.0 background) and bin_overflow."""
+    geometry, then visibility (_vis_stages); gives prefix + tri, tid, depth
+    (1.0 background) and bin_overflow."""
+    return ([_geometry_stage(config, capacity, prefix, outer)]
+            + _vis_stages(config, capacity, prefix, outer))
+
+
+def _geometry_stage(config: RenderConfig, capacity: int, prefix: str, outer: tuple) -> Stage:
+    """Geometry of the frame (visible_triangles) from prefix + view and
+    proj: prefix + tri, and prefix + vis, the triangles visibility sees."""
 
     def geometry_(v):
         tri, vis_tri = visible_triangles(v["scene"], v[prefix + "view"], v[prefix + "proj"],
                                          config, capacity)
         return {prefix + "tri": tri, prefix + "vis": vis_tri}
 
-    def step(fn):
-        return lambda v: {prefix + "vis": fn(v[prefix + "vis"])}
+    return Stage(outer + ("geometry",), geometry_)
+
+
+def _vis_stages(config: RenderConfig, capacity: int, prefix: str, outer: tuple,
+                y_offset: int = 0, tris: Optional[str] = None, rows=None) -> list:
+    """Visibility's steps (raster.dispatch.visibility_steps, rows
+    [y_offset, y_offset + config.height) of the frame) on the triangles
+    v[tris] (default prefix + vis), then prefix + tid, bin_overflow and
+    depth with 1.0 background; rows: a slice of v["depth_pad"] the depth is
+    written into (a screen band's rows of the padded frame)."""
+    key = prefix + "vis"
+
+    def step(fn, src):
+        return lambda v: {key: fn(v[src])}
 
     def depth_(v):
-        tid, zbuf, bin_of = v[prefix + "vis"]
-        return {prefix + "vis": None, prefix + "tid": tid, prefix + "bin_overflow": bin_of,
-                prefix + "depth": torch.where(torch.isinf(zbuf), 1.0, zbuf)}
+        tid, zbuf, bin_of = v[key]
+        if rows is None:
+            depth = torch.where(torch.isinf(zbuf), 1.0, zbuf)
+        else:
+            depth = torch.where(torch.isinf(zbuf), convert.constant(1.0, zbuf.device), zbuf,
+                                out=v["depth_pad"][rows])
+        return {key: None, prefix + "tid": tid, prefix + "bin_overflow": bin_of,
+                prefix + "depth": depth}
 
-    return ([Stage(outer + ("geometry",), geometry_)]
-            + [Stage(outer + ((name,) if name else ()), step(fn))
-               for name, fn in dispatch.visibility_steps(config, capacity)]
+    steps = dispatch.visibility_steps(config, capacity, y_offset)
+    return ([Stage(outer + ((name,) if name else ()), step(fn, (tris or key) if i == 0 else key))
+             for i, (name, fn) in enumerate(steps)]
             + [Stage(outer, depth_)])
 
 
@@ -227,9 +251,11 @@ def _shadow_maps(v) -> dict:
     return {"shadow": shadow, "light_tri": None, "light_tid": None}
 
 
-def _shade(v, config, shade_hook) -> dict:
-    return {"rgb": shade(v["tri"], v["tid"], v["scene"], config, v["cam"].eye,
-                         v.get("shadow", {}), shade_hook, v["depth"])}
+def _shade(v, config, shade_hook, prefix: str = "", y_offset: int = 0) -> dict:
+    """prefix + rgb: shading of prefix + tid and depth, the rows from
+    y_offset."""
+    return {prefix + "rgb": shade(v["tri"], v[prefix + "tid"], v["scene"], config, v["cam"].eye,
+                                  v.get("shadow", {}), shade_hook, v[prefix + "depth"], y_offset)}
 
 
 def _blend(v, config) -> dict:
@@ -439,8 +465,22 @@ def host_inputs(camera, config: RenderConfig, light_view=None, light_proj=None) 
     return host
 
 
-def _pack_stats(v) -> dict:
+def pack_stats(v) -> dict:
+    """The frame's stats in one vector (stats_vec), which frame_from copies
+    out once."""
     return {"stats_vec": torch.stack(list(v["stats"].values()))}
+
+
+def frame_from(v: dict, out=None) -> Frame:
+    """The Frame of a replayed frame's values (color, depth, stats and
+    stats_vec): its color and depth copied into `out` (or new tensors), its
+    stats into a vector of their own, so the Frame outlives the next
+    replay."""
+    own = v["stats_vec"].clone()
+    stats = {k: own[i] for i, k in enumerate(v["stats"])}
+    if out is None:
+        return Frame(color=v["color"].clone(), depth=v["depth"].clone(), stats=stats)
+    return Frame(color=out[0].copy_(v["color"]), depth=out[1].copy_(v["depth"]), stats=stats)
 
 
 class FrameInputs:
@@ -452,7 +492,7 @@ class FrameInputs:
     ``values``: frame_stages' inputs. host: a first frame's host_inputs."""
 
     def __init__(self, scene: Scene, host: dict, device):
-        self.scene = StaticLeaves(scene)
+        self.scene = StaticLeaves(scene, device)
         self.staging = convert.StagingRing({k: tuple(np.shape(v)) for k, v in host.items()},
                                            device)
         self.load(scene, host)
@@ -467,27 +507,17 @@ class FrameInputs:
 
 
 class CapturedFrame:
-    """Renderer's frame on a card: frame_stages captured by a FrameProgram
-    on FrameInputs. The last graph also packs the stats into one vector,
-    which ``frame`` copies out once."""
+    """Renderer's frame on a card: a frame's stages (frame_stages) captured
+    by a FrameProgram on FrameInputs. The last graph also packs the stats
+    into one vector (pack_stats)."""
 
-    def __init__(self, scene: Scene, host: dict, config: RenderConfig, capacity: int,
-                 shade_hook, device):
+    def __init__(self, scene: Scene, host: dict, stages: list, device):
         self.inputs = FrameInputs(scene, host, device)
-        stages = frame_stages(config, capacity, shade_hook) + [Stage((), _pack_stats)]
-        self.program = FrameProgram(stages, self.inputs.values, device)
+        self.program = FrameProgram(stages + [Stage((), pack_stats)], self.inputs.values, device)
 
     def frame(self, out=None) -> Frame:
-        """Replay the frame; its color and depth are copied into `out` (or
-        new tensors) and its stats into a vector of its own, so the Frame
-        outlives the next replay."""
-        v = self.program.replay()
-        own = v["stats_vec"].clone()
-        stats = {k: own[i] for i, k in enumerate(v["stats"])}
-        if out is None:
-            return Frame(color=v["color"].clone(), depth=v["depth"].clone(), stats=stats)
-        return Frame(color=out[0].copy_(v["color"]), depth=out[1].copy_(v["depth"]),
-                     stats=stats)
+        """Replay the frame (see frame_from)."""
+        return frame_from(self.program.replay(), out)
 
 
 class Renderer(FramebufferPool):
@@ -563,8 +593,8 @@ class Renderer(FramebufferPool):
         key = (signature(scene), tuple(tuple(np.shape(v)) for v in host.values()))
         if key != self._key:
             self._captured = self._key = None  # the old graphs go before the new
-            self._captured = CapturedFrame(scene, host, self.config, self.capacity,
-                                           self._hook, dev)
+            self._captured = CapturedFrame(
+                scene, host, frame_stages(self.config, self.capacity, self._hook), dev)
             self._key = key
         with span("camera"):
             self._captured.inputs.load(scene, host)

@@ -254,7 +254,9 @@ def sample_trilinear(pyramid, tex_id, u, v, lod, addr=None, mip_math: str = "tab
     return torch.stack(chans, dim=-1)
 
 
-def resolve_u8(color_f32: torch.Tensor) -> torch.Tensor:
-    """Linear f32 color -> u8, round half up."""
+def resolve_u8(color_f32: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Linear f32 color -> u8, round half up; out: a u8 tensor of the
+    color's shape to write it into."""
     c = torch.clamp(color_f32, 0.0, 1.0)
-    return torch.floor(c * 255.0 + 0.5).to(torch.uint8)
+    u = torch.floor(c * 255.0 + 0.5)
+    return u.to(torch.uint8) if out is None else out.copy_(u)
