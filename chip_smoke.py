@@ -8,7 +8,8 @@ Phases, each of which raises on failure (exit code != 0, no final line):
   2. build: compiles the CUDA kernels from xr_torch/csrc/ (nvcc, one process
      per source, started together) and prints ptxas's registers and spill
      stores of each fold kernel (the ungated B1 and B2, the gated B1 with
-     and without z_chunk_gate), none of which may spill
+     and without z_chunk_gate), none of which may spill, and of the blend
+     kernel
      native: the host codec (xr_torch/native, g++ into build/) must build;
      the courtyard's OBJ parsed natively and by Python gives equal arrays,
      a 1920x1080 PNG written natively and by Python decodes to the same
@@ -106,16 +107,19 @@ Phases, each of which raises on failure (exit code != 0, no final line):
        cameras with "pallas_smem" (the list kernel twice a frame):
        identical color, depth and stats
      - config4b (config4 with two blended panes) at 1920x1080, 30 frames on
-       config4's cameras: no blend overflow, config4's depth, other colors;
-       the blend stage's device time beside that of the composite that
-       ran all its chunks (127.686 ms, another call; PERF.md), and the
-       chunks the composite runs in each frame (ceil(count / blend_chunk));
-       then the cropped composite (each live chunk on its live slots over
-       its screen box) against the whole-frame composite on all slots
-       (_plain_composite, the composite before the crop) at five of the
-       benchmark cell's t, unbanded and in each of 4 bands: the same f32
-       bytes, else the phase fails; each frame's live slots and box share,
-       and the two composites' device ms and memory, in turns
+       config4's cameras: no blend overflow, config4's depth, other colors,
+       the blend kernel (blend_composite) once a frame; the blend stage's
+       device time beside that of the composite that ran all its chunks
+       (127.686 ms, another call; PERF.md), and the live chunks of each
+       frame (ceil(count / blend_chunk)); then the blend kernel against its
+       plain version (blend.blend_composite_plain, the cropped torch
+       composite: each live chunk on its live slots over its screen box)
+       and the whole-frame composite on all slots
+       (blend.composite_whole_frame) at five of the benchmark cell's t,
+       unbanded and in each of 4 bands: the same f32 bytes, else the phase
+       fails; each frame's live slots and box share, and the three
+       composites' device ms and memory, in turns, beside the card's name
+       and power limit
      - config6 (the courtyard loaded from its OBJ, MTL and PNG files, Phong
        with a 1024x1024 shadow map, a ragged texture pyramid, one clamped
        map) at 1920x1080, 30 frames, the stream kernel twice a frame; then
@@ -147,7 +151,8 @@ Phases, each of which raises on failure (exit code != 0, no final line):
        flush() (the host copy started when the frame is queued, into pinned
        memory) against step() + readback(): the same bytes
      - graphs: Renderer.step replays the frame it captured at its first
-       step (one CUDA graph a stage span; config4b's blend runs eagerly):
+       step (one CUDA graph a stage span, config4b's blend included: no
+       segment may run eagerly):
        the six benchmark cells' presets as published at 1920x1080 (the
        present cell through present() + flush()), GRAPH_FRAMES t of each
        cell's seed-0 path, against render_step's eager frames of the same
@@ -237,6 +242,8 @@ BIN_OPTIONS = {
 }
 SOURCES = {
     "vis_stream": ("xr_torch/csrc/vis_stream.cu", "xr/raster/pallas_stream.py:80"),
+    # no Pallas kernel: the reference's blend composite, an XLA stage
+    "blend_composite": ("xr_torch/csrc/blend.cu", "xr/shading/blend.py:95"),
     # B1 under z_earlyout: the gates of the record loop (B3) on the card
     "vis_stream_zgate": ("xr_torch/csrc/vis_stream.cu", "xr/raster/pallas_smem.py:138"),
     "vis_lists": ("xr_torch/csrc/vis_lists.cu", "xr/raster/pallas_smem.py:346"),
@@ -246,6 +253,13 @@ SOURCES = {
 }
 KERNELS = tuple(SOURCES)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+FP32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA's data sheet)
+# f32 operations of one shaded transparent fragment of config4b in
+# csrc/blend.cu (Phong, two directional and two point lights, the shadow
+# test, no texture): barycentrics and depth 9, 1/w and 8 attributes 55, the
+# normal 10, base 3, the shadow test 43, the view vector 13, ambient 6, the
+# lights 259, the composite 10
+PHONG_FRAGMENT_OPS = 408
 INT32_LANES = 132 * 64  # SMs x INT32 lanes per SM
 EDGE_OPS = 6  # per pixel of a record's bbox: three edge functions of two multiply-adds
 DECODE_OPS = 8  # per (tile, record) pair: unpacking the bbox and the tie offsets
@@ -379,6 +393,12 @@ def phase_build() -> None:
         log(f"build: ptxas, fold kernels (walk, gate): {folds}")
         if len(folds) != 4 or any(v["spill_bytes"] for v in folds.values()):
             raise AssertionError(f"build: a fold kernel spills or is missing: {folds}")
+        m = re.search(r"Function properties for (_ZN3xrb22blend_composite_kernel\w+)\n"
+                      r".*?(\d+) bytes spill stores.*?\n.*?Used (\d+) registers", out.getvalue())
+        if m is None:
+            raise AssertionError("build: ptxas reported no blend_composite_kernel")
+        log(f"build: ptxas, blend_composite_kernel: {m.group(3)} registers, "
+            f"{m.group(2)} bytes of spill stores")
 
 
 def phase_native() -> None:
@@ -994,9 +1014,12 @@ def phase_golden(dev) -> None:
         if bad > allowed or abs(cov - m["coverage"]) >= 1e-6:
             raise AssertionError(f"golden mismatch: {name}")
         # config1 renders by brute force (no kernel); the others stream,
-        # the shadow-mapped ones twice (the shadow map, then the frame)
+        # the shadow-mapped ones twice (the shadow map, then the frame);
+        # config4b's blend kernel once
         want = 0 if name == "config1" else 2 if name in SHADOW_EDGE else 1
-        if launched[_b1(p.config)] != want or sum(launched.values()) != want:
+        blends = int(p.config.blend)
+        if (launched[_b1(p.config)] != want or launched["blend_composite"] != blends
+                or sum(launched.values()) != want + blends):
             raise AssertionError(f"{name}: unexpected kernel launches {launched}")
 
 
@@ -1104,8 +1127,9 @@ def _coverage_between(frames, lo, hi) -> None:
             raise AssertionError(f"implausible frame, coverage {cov}")
 
 
-def phase_main_path(dev) -> dict:
-    """Returns the launches of each kernel, summed over the runs."""
+def phase_main_path(dev, smi: str):
+    """Returns (the launches of each kernel, summed over the runs; the
+    blend kernel's numbers, _blend_crop_check)."""
     total = dict.fromkeys(KERNELS, 0)
 
     def count(launches):
@@ -1203,7 +1227,8 @@ def phase_main_path(dev) -> dict:
     # panes write no depth and tint what is behind them
     p, _, scene = _setup(dev, _preset("config4b"), 1920, 1080, 0.0)
     times, frames, launches = _run_frames(dev, scene, p.config, cams)
-    if launches["vis_stream"] < 2 * len(cams) or launches["vis_lists"]:
+    if (launches["vis_stream"] < 2 * len(cams) or launches["vis_lists"]
+            or launches["blend_composite"] < len(cams)):
         raise AssertionError(f"config4b: launches {launches} in {len(cams)} frames")
     for i, (f, g) in enumerate(zip(frames, runs["auto"])):
         if int(f.stats["blend_overflow"]) or not np.array_equal(f.depth, g.depth):
@@ -1214,10 +1239,11 @@ def phase_main_path(dev) -> dict:
     _log_run("config4b (blend)", p.config, scene.mesh.num_triangles, times, launches)
     stages = _stage_times(dev, p, cams[5], scene)
     _log_stages("config4b t=0.3", stages)
-    log(f"config4b blend stage: {stages['blend']:.3f} ms device time at t=0.3 (the composite "
-        "that ran all its chunks: 127.686 ms, in another call); chunks run per frame "
-        f"{_blend_chunks(p, scene, cams)} of {-(-p.config.blend_capacity // p.config.blend_chunk)}")
-    _blend_crop_check(dev, p, scene)
+    log(f"config4b blend stage: {stages['blend']:.3f} ms device time at t=0.3 (the blend "
+        "kernel; the composite that ran all its chunks: 127.686 ms, in another call); live "
+        f"chunks per frame {_blend_chunks(p, scene, cams)} of "
+        f"{-(-p.config.blend_capacity // p.config.blend_chunk)}")
+    kv_blend = _blend_crop_check(dev, p, scene, smi)
 
     # screen bands on the shadow-mapped frames: config4 (both backends) in
     # two bands, config4b in four, every band on this card; the unbanded
@@ -1231,7 +1257,9 @@ def phase_main_path(dev) -> dict:
         times, got, launches = _run_frames(dev, sc, cfg, cams[:5], banded=True)
         kernel = "vis_lists" if backend == "pallas_smem" else "vis_stream"
         other = "vis_stream" if kernel == "vis_lists" else "vis_lists"
-        if launches[kernel] != (1 + n) * 5 or launches[other]:
+        blends = n * 5 if pp.config.blend else 0
+        if (launches[kernel] != (1 + n) * 5 or launches[other]
+                or launches["blend_composite"] != blends):
             raise AssertionError(f"{label} in {n} bands: launches {launches} in 5 frames")
         count(launches)
         _same_bytes(f"{label} in {n} bands against unbanded", got, want[:5])
@@ -1334,7 +1362,7 @@ def phase_main_path(dev) -> dict:
     _log_stages("config7 t=13.0", _stage_times(dev, p, p.animate(13.0)[0], scene))
     _gate_turns(dev, "config7", p, scene, cams[9:14])
     del frames
-    return total
+    return total, kv_blend
 
 
 def _blend_chunks(p, scene, cams) -> list:
@@ -1353,61 +1381,54 @@ def _blend_chunks(p, scene, cams) -> list:
     return out
 
 
-def _plain_composite(color, depth, tri, scene, config, eye, shadow_depth=None,
-                     light_viewproj=None, y_offset=0):
-    """The blend composite as it ran before the crop: every live chunk on
-    all blend_chunk slots over the whole frame (or band), each slot
-    composited with a whole-frame torch.where; the plain version the
-    cropped composite is held to."""
-    from xr_torch.core import fixedpoint as fp
-    from xr_torch.raster import common as rc
-    from xr_torch.shading import blend
-
-    H, W = depth.shape
-    cap = config.blend_capacity
-    ch = min(config.blend_chunk, cap)
-    nchunks = -(-cap // ch)
-    alpha = blend.material_alpha(scene)
-    tmask = blend.transparent_mask(tri, scene)
-    ids, total = blend._src_ordered_ids(tri, tmask, cap)
-    overflow = torch.clamp_min(total - cap, 0).to(torch.int32)
-    px, py = rc.pixel_grids(W, H, config.subpixel, depth.device)
-    py = py + y_offset * config.subpixel
-    slot_valid = torch.arange(nchunks * ch, device=depth.device) < torch.clamp_max(total, cap)
-    ids = torch.cat([ids, ids.new_zeros(nchunks * ch - cap)]).long()
-    eye = torch.as_tensor(eye, dtype=torch.float32, device=depth.device)
-    n_live = int(torch.clamp_max(tmask.sum(), cap))
-    for c in range(-(-n_live // ch)):
-        sl = ids[c * ch : (c + 1) * ch]
-        ok = slot_valid[c * ch : (c + 1) * ch]
-        xs = tri.xs[sl][:, None, None, :]
-        ys = tri.ys[sl][:, None, None, :]
-        cov, (e0, e1, e2) = fp.coverage(xs, ys, px[None], py[None])
-        zf = rc.fragment_depth(e0, e1, e2, tri.z[sl][:, None, None, :])
-        mask = cov & rc.depth_range_mask(zf) & ok[:, None, None] & (zf < depth[None])
-        frag = blend._fragment_colors(tri, sl, scene, config, eye, e0, e1, e2, mask,
-                                      shadow_depth, light_viewproj)
-        a = alpha[tri.mat_id[sl].long()]
-        for j in range(ch):
-            color = torch.where(mask[j][..., None], color * (1.0 - a[j]) + frag[j] * a[j], color)
-    return color, overflow
-
-
 BLEND_CROP_TIMES = (0.05, 3.0, 6.05, 9.0, 16.0)  # inside config4b_1080p's frames
 
 
-def _blend_crop_check(dev, p, scene) -> None:
-    """The cropped blend composite (live slots, their screen box) against
-    the whole-frame composite on all slots (_plain_composite) at
-    BLEND_CROP_TIMES, unbanded and in 4 bands: the same f32 bytes, else
-    the run fails. Logs each frame's live slots and the box's share of the
-    frame (of the band), and the two composites' device ms at the first
-    time, in turns."""
+def _fragments(live, depth, cfg) -> int:
+    """The transparent fragments the composite shades over the frame's
+    depth: the live slots' covered pixels in their boxes, inside the depth
+    range and in front of the opaque depth (blend.fragment_mask)."""
+    from xr_torch.core import fixedpoint as fp
+    from xr_torch.shading import blend
+
+    H, W = depth.shape
+    ch = min(cfg.blend_chunk, cfg.blend_capacity)
+    n = 0
+    for c, (y0, y1, x0, x1) in enumerate(live.boxes):
+        y0, y1, x0, x1 = max(y0, 0), min(y1, H), max(x0, 0), min(x1, W)
+        if y0 >= y1 or x0 >= x1:
+            continue
+        rec = blend.unpack_slots(live.table[c * ch : min((c + 1) * ch, live.count)],
+                                 cfg.attr_width)
+        px = fp.pixel_center_fixed(torch.arange(x0, x1, device=depth.device), cfg.subpixel)
+        py = fp.pixel_center_fixed(torch.arange(y0, y1, device=depth.device), cfg.subpixel)
+        n += int(blend.fragment_mask(rec, px, py, depth[y0:y1, x0:x1])[0].sum())
+    return n
+
+
+def _blend_crop_check(dev, p, scene, smi: str) -> dict:
+    """The blend kernel (composite_transparent on the card) against its
+    plain version (blend.blend_composite_plain: the cropped torch
+    composite, the live slots read to the host) and the whole-frame
+    composite on all slots (blend.composite_whole_frame) at
+    BLEND_CROP_TIMES, unbanded and in 4 bands: the same f32 bytes, else the
+    run fails. Logs each frame's live slots and the box's share of the
+    frame (of the band); at the first time the three composites' device ms
+    in turns (kernel, crop, whole frame, whole frame, crop, kernel: the
+    kernel's launch alone with a cold L2 behind a device spin, the torch
+    composites by CUDA events around 10 calls) beside the card's name and
+    power limit, and their memory. Returns the kernel's numbers for the kernels line (its
+    time, its plain version's, its bound: the frame's color read and
+    written, the depth of the live boxes and the slot table over the
+    memory rate, or the shaded fragments' f32 operations over the FP32
+    peak)."""
+    from xr_torch import kernels
     from xr_torch.app import renderer
     from xr_torch.dist import shard
     from xr_torch.pipeline.shadow import light_matrices_for_scene
     from xr_torch.raster import dispatch
     from xr_torch.shading import blend
+    from xr_torch.tools.timing import device_ms, flush_buffer
 
     cfg = p.config
     cap = _capacity(scene, cfg)
@@ -1415,13 +1436,16 @@ def _blend_crop_check(dev, p, scene) -> None:
     shadow, _ = renderer.shadow_pass(scene, cfg, *light, cap)
     n = 4
     _, hb, band = shard.band_config(cfg, n)
+    err = 0.0
 
-    def same(label, got, want):
-        if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
-                and int(got[1]) == int(want[1])):
-            bad = int((got[0] != want[0]).any(-1).sum())
-            raise AssertionError(f"config4b {label}: the cropped composite differs from the "
-                                 f"whole-frame one at {bad} pixels")
+    def same(label, kernel, plain, whole):
+        nonlocal err
+        for what, want in (("its plain version", plain), ("the whole-frame composite", whole)):
+            err = max(err, float((kernel - want).abs().max()))
+            if not torch.equal(kernel.view(torch.int32), want.view(torch.int32)):
+                bad = int((kernel != want).any(-1).sum())
+                raise AssertionError(f"config4b {label}: the blend kernel differs from {what} "
+                                     f"at {bad} pixels")
 
     def share(live, rows, width):
         area = 0
@@ -1430,14 +1454,23 @@ def _blend_crop_check(dev, p, scene) -> None:
             area += max(min(y1, rows.stop) - max(y0, rows.start), 0) * max(x1 - x0, 0)
         return area / ((rows.stop - rows.start) * width)
 
+    out = None
     for t in BLEND_CROP_TIMES:
         cam = p.animate(t)[0]
         c, view, proj = renderer.camera_matrices(scene, cam, cfg)
         tri, tid, depth, _ = renderer.depth_pass(scene, view, proj, cfg, cap)
         rgb = renderer.shade(tri, tid, scene, cfg, c.eye, shadow)
-        live = blend.live_records(tri, scene, cfg)
+        slots = blend.live_slots(tri, scene, cfg)
+        live = blend.live_records(tri, scene, cfg, slots)
         args = (rgb, depth, tri, scene, cfg, c.eye)
-        same(f"t={t}", blend.composite_transparent(*args, **shadow), _plain_composite(*args, **shadow))
+        kernels.reset_launches()
+        got, overflow = blend.composite_transparent(*args, live=slots, **shadow)
+        torch.cuda.synchronize()
+        if kernels.launches["blend_composite"] != 1 or int(overflow):
+            raise AssertionError(f"config4b t={t}: launches {kernels.launches}, overflow "
+                                 f"{int(overflow)}")
+        same(f"t={t}", got, blend.blend_composite_plain(*args, live=slots, **shadow),
+             blend.composite_whole_frame(*args, **shadow)[0])
         shares = []
         vis_tri = tri.replace(valid=blend.opaque_valid(tri, scene))
         for b in range(n):
@@ -1447,30 +1480,60 @@ def _blend_crop_check(dev, p, scene) -> None:
             brgb = renderer.shade(tri, btid, scene, band, c.eye, shadow, None, bdepth, yo)
             bargs = (brgb, bdepth, tri, scene, band, c.eye)
             same(f"t={t} band {b} of {n}",
-                 blend.composite_transparent(*bargs, y_offset=yo, live=live, **shadow),
-                 _plain_composite(*bargs, y_offset=yo, **shadow))
+                 blend.composite_transparent(*bargs, y_offset=yo, live=slots, **shadow)[0],
+                 blend.blend_composite_plain(*bargs, y_offset=yo, live=slots, **shadow),
+                 blend.composite_whole_frame(*bargs, y_offset=yo, **shadow)[0])
             shares.append(share(live, range(yo, yo + hb), cfg.width))
-        log(f"config4b blend crop t={t}: {live.count} live slots, boxes {live.boxes}, "
+        log(f"config4b blend t={t}: {live.count} live slots, boxes {live.boxes}, "
             f"{share(live, range(cfg.height), cfg.width):.4f} of the frame; bands of {hb} rows: "
-            + ", ".join(f"{s:.4f}" for s in shares) + "; equal to the whole-frame composite's "
-            "f32 bytes, unbanded and in every band")
+            + ", ".join(f"{s:.4f}" for s in shares) + "; the kernel's f32 bytes are its plain "
+            "version's and the whole-frame composite's, unbanded and in every band")
         if t == BLEND_CROP_TIMES[0]:
-            crop = lambda: blend.composite_transparent(*args, **shadow)  # noqa: E731
-            plain = lambda: _plain_composite(*args, **shadow)  # noqa: E731
-            ms = {"plain": [], "crop": []}
-            for k in ("plain", "crop", "crop", "plain"):
-                ms[k].append(cuda_ms(crop if k == "crop" else plain, 10))
-            torch.cuda.reset_peak_memory_stats(dev)
-            base = torch.cuda.memory_allocated(dev)
-            crop()
-            peak_crop = torch.cuda.max_memory_allocated(dev) - base
-            torch.cuda.reset_peak_memory_stats(dev)
-            plain()
-            peak_plain = torch.cuda.max_memory_allocated(dev) - base
-            log(f"config4b blend composite t={t} (CUDA events, 10 calls, in turns plain, crop, "
-                f"crop, plain): cropped {ms['crop'][0]:.3f} / {ms['crop'][1]:.3f} ms, "
-                f"whole frame {ms['plain'][0]:.3f} / {ms['plain'][1]:.3f} ms; memory above "
-                f"its inputs {peak_crop / 2**20:.1f} against {peak_plain / 2**20:.1f} MiB")
+            launch = blend.kernel_call(rgb, depth, slots, scene, cfg, c.eye, **shadow)
+            flush = flush_buffer(dev)
+            fns = {"kernel": launch,
+                   "crop": lambda: blend.blend_composite_plain(*args, **shadow),
+                   "whole frame": lambda: blend.composite_whole_frame(*args, **shadow)}
+            ms = {k: [] for k in fns}
+            for k in ("kernel", "crop", "whole frame", "whole frame", "crop", "kernel"):
+                # the kernel alone, cold L2, queued behind a device spin; the
+                # torch composites read the host, so events around 10 calls
+                ms[k].append(device_ms(launch, 20, flush=flush)[0] if k == "kernel"
+                             else cuda_ms(fns[k], 10))
+            del flush
+            peaks = {}
+            for k in ("kernel", "crop"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                fns[k]()
+                peaks[k] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+            frags = _fragments(live, depth, cfg)
+            box_px = sum(max(min(y1, cfg.height) - max(y0, 0), 0)
+                         * max(min(x1, cfg.width) - max(x0, 0), 0)
+                         for y0, y1, x0, x1 in live.boxes)
+            nbytes = (2 * rgb.numel() * 4 + box_px * 4 + live.count * slots.table.shape[1] * 4
+                      + 4)
+            ops = frags * PHONG_FRAGMENT_OPS
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+            out = {"max_abs_err": 0.0, "ms": float(np.mean(ms["kernel"])),
+                   "plain_ms": float(np.mean(ms["crop"])),
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": None}
+            log(f"config4b blend composite t={t} on {smi} (in turns kernel, crop, whole "
+                "frame, whole frame, crop, kernel; the kernel's launch alone with a cold L2, "
+                "20 launches behind a device spin; the torch composites by CUDA events around "
+                "10 calls): kernel "
+                f"{ms['kernel'][0]:.4f} / {ms['kernel'][1]:.4f} ms, cropped torch composite "
+                f"{ms['crop'][0]:.4f} / {ms['crop'][1]:.4f} ms, whole frame "
+                f"{ms['whole frame'][0]:.4f} / {ms['whole frame'][1]:.4f} ms; memory above its "
+                f"inputs: kernel {peaks['kernel']:.1f} MiB, crop {peaks['crop']:.1f} MiB; bound "
+                f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({nbytes} bytes: color in and out, "
+                f"the depth of {box_px} box pixels, {live.count} table rows; {frags} fragments "
+                f"x {PHONG_FRAGMENT_OPS} f32 operations)")
+    out["max_abs_err"] = err
+    return out
 
 
 def _same_bytes(label, banded, unbanded) -> None:
@@ -1771,6 +1834,7 @@ def phase_oracle(dev) -> dict:
         r.step(scene, cam)  # the capture
         card, launches = _counted(lambda: r.readback(r.step(scene, cam)))
         want = {k: (per_frame if k == kernel else 0) for k in KERNELS}
+        want["blend_composite"] = bands if p.config.blend else 0
         if launches != want:
             raise AssertionError(f"oracle {label}: launches {launches}, expected {want}")
         for k, v in launches.items():
@@ -1969,6 +2033,9 @@ def _graphs_case(dev, name, preset, ts, present=False, bands=0, **over) -> dict:
     t_cap = time.perf_counter() - t_cap
     peak = torch.cuda.max_memory_allocated(dev) - base
     segs = _segments(r)
+    if any(s.graph is None for s in segs):
+        raise AssertionError(f"{name}: segments run eagerly: "
+                             f"{[s.name for s in segs if s.graph is None]}")
     total = dict.fromkeys(KERNELS, 0)
 
     def graphed(cam):
@@ -2095,7 +2162,7 @@ def main() -> int:
     phase_gate_probe()
     kv.update(phase_gathers(dev, clock_hz))
     phase_golden(dev)
-    launches = phase_main_path(dev)
+    launches, kv["blend_composite"] = phase_main_path(dev, smi)
     for k, v in phase_oracle(dev).items():
         launches[k] += v
     phase_present(dev)

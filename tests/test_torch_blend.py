@@ -22,7 +22,7 @@ on the CPU, against the reference on the same numpy inputs:
   reference;
 - the cropped composite (live slots, their screen box) equals, bit for
   bit, the whole-frame composite on all slots of each live chunk
-  (_plain_composite, the composite as it ran before the crop): config4b at
+  (blend.composite_whole_frame, the composite before the crop): config4b at
   five t, in four bands (a pane across a band edge, bands no pane
   reaches), a pane cut by the frame's edge, one chunk a record, a live
   record whose box holds no pixel centre, and past blend_capacity.
@@ -47,12 +47,10 @@ from xr.scene import procedural as rproc
 from xr.scene import texture as rtx
 from xr_torch import Renderer, ShardedRenderer, convert, kernels
 from xr_torch.app import renderer
-from xr_torch.core import fixedpoint as fp
 from xr_torch.core import math3d as m3
 from xr_torch.dist import shard
 from xr_torch.pipeline.geometry import clip_capacity, geometry
 from xr_torch.pipeline.shadow import light_matrices_for_scene
-from xr_torch.raster import common as rc
 from xr_torch.raster import dispatch
 from xr_torch.scene import presets
 from xr_torch.shading import blend
@@ -253,7 +251,7 @@ def _count_chunks(monkeypatch, shapes=None):
     def counted_frag(*a, **k):
         calls["chunks"] += 1
         if shapes is not None:
-            shapes.append(tuple(a[6].shape))  # e0: (slots, rows, columns)
+            shapes.append(tuple(a[4].shape))  # e0: (slots, rows, columns)
         return frag(*a, **k)
 
     def counted_live(*a, **k):
@@ -368,42 +366,6 @@ def test_over_capacity_runs_every_chunk_and_reports_overflow(monkeypatch):
     _check_rule(got, ref, scene, cam, p.config)
 
 
-def _plain_composite(color, depth, tri, scene, config, eye, shadow_depth=None,
-                     light_viewproj=None, y_offset=0):
-    """The composite as it ran before the crop, the plain version the
-    cropped one is held to: every live chunk on all blend_chunk slots over
-    the whole frame (band), each slot composited by a whole-frame
-    torch.where."""
-    H, W = depth.shape
-    cap = config.blend_capacity
-    ch = min(config.blend_chunk, cap)
-    nchunks = -(-cap // ch)
-    alpha = blend.material_alpha(scene)
-    tmask = blend.transparent_mask(tri, scene)
-    ids, total = blend._src_ordered_ids(tri, tmask, cap)
-    overflow = torch.clamp_min(total - cap, 0).to(torch.int32)
-    px, py = rc.pixel_grids(W, H, config.subpixel, depth.device)
-    py = py + y_offset * config.subpixel
-    slot_valid = torch.arange(nchunks * ch) < torch.clamp_max(total, cap)
-    ids = torch.cat([ids, ids.new_zeros(nchunks * ch - cap)]).long()
-    eye = torch.as_tensor(eye, dtype=torch.float32)
-    n_live = int(torch.clamp_max(tmask.sum(), cap))
-    for c in range(-(-n_live // ch)):
-        sl = ids[c * ch : (c + 1) * ch]
-        ok = slot_valid[c * ch : (c + 1) * ch]
-        xs = tri.xs[sl][:, None, None, :]
-        ys = tri.ys[sl][:, None, None, :]
-        cov, (e0, e1, e2) = fp.coverage(xs, ys, px[None], py[None])
-        zf = rc.fragment_depth(e0, e1, e2, tri.z[sl][:, None, None, :])
-        mask = cov & rc.depth_range_mask(zf) & ok[:, None, None] & (zf < depth[None])
-        frag = blend._fragment_colors(tri, sl, scene, config, eye, e0, e1, e2, mask,
-                                      shadow_depth, light_viewproj)
-        a = alpha[tri.mat_id[sl].long()]
-        for j in range(ch):
-            color = torch.where(mask[j][..., None], color * (1.0 - a[j]) + frag[j] * a[j], color)
-    return color, overflow
-
-
 def _pane_camera():
     """test_blend_order_survives_clipping's camera: at z = 5 looking down
     -z, 60 degrees of fov_y."""
@@ -490,7 +452,8 @@ def test_cropped_composite_is_the_whole_frame_composite(monkeypatch, case):
     if renderer.has_shadow_pass(cfg):
         shadow, _ = renderer.shadow_pass(scene, cfg, *light_matrices_for_scene(scene), cap)
     tri, vis_tri = renderer.visible_triangles(scene, view, proj, cfg, cap)
-    live = blend.live_records(tri, scene, cfg)
+    slots = blend.live_slots(tri, scene, cfg)
+    live = blend.live_records(tri, scene, cfg, slots)
     ch = min(cfg.blend_chunk, cfg.blend_capacity)
     assert live.count == min(int(blend.transparent_mask(tri, scene).sum()), cfg.blend_capacity)
     assert len(live.boxes) == -(-live.count // ch)
@@ -501,11 +464,12 @@ def test_cropped_composite_is_the_whole_frame_composite(monkeypatch, case):
         tid, zbuf, _ = dispatch.visibility(vis_tri, band_cfg, cap, y_offset=yo)
         depth = torch.where(torch.isinf(zbuf), 1.0, zbuf)
         rgb = renderer.shade(tri, tid, scene, band_cfg, c.eye, shadow, None, depth, yo)
-        want = _plain_composite(rgb, depth, tri, scene, band_cfg, c.eye, y_offset=yo, **shadow)
+        want = blend.composite_whole_frame(rgb, depth, tri, scene, band_cfg, c.eye, y_offset=yo,
+                                           **shadow)
         shapes = []
         calls = _count_chunks(monkeypatch, shapes)
         got = blend.composite_transparent(rgb, depth, tri, scene, band_cfg, c.eye, y_offset=yo,
-                                          live=live if bands > 1 else None, **shadow)
+                                          live=slots if bands > 1 else None, **shadow)
         monkeypatch.undo()
         assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), b
         assert int(got[1]) == int(want[1]) == max(int(blend.transparent_mask(tri, scene).sum())

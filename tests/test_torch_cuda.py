@@ -16,6 +16,10 @@ the CPU's, and the app layer on the card (debug_checks with a NaN vertex,
 a shade_hook reading frag.depth, recycle_framebuffers=False), both
 kernels on screen bands (y_offset != 0, records above the band's first
 row) and banded frames on the card equal to the unbanded ones, and the
+blend kernel against its plain version and the whole-frame composite
+bit for bit in f32 in each mode (config4b's panes, flat, Gouraud, textured
+and Phong, a uniform and a ragged pyramid, one map clamped), unbanded and
+in four bands, the
 setup records of config5 and config7 at 1920x1080 on the card equal to
 the CPU's bit for bit (the frame's camera matrices are the host's on
 every device: CUDA's tan is not the CPU's), and the stream kernel under
@@ -36,14 +40,19 @@ import pytest
 import torch
 
 from xr_torch import Renderer, convert, kernels
+from xr_torch.app import renderer
 from xr_torch.app.renderer import has_shadow_pass, shadow_config
 from xr_torch.core import math3d as m3
+from xr_torch.core import types
+from xr_torch.core.types import MODE_FLAT, MODE_GOURAUD, MODE_PHONG, MODE_TEXTURED
 from xr_torch.dist import shard
-from xr_torch.pipeline.geometry import geometry
+from xr_torch.pipeline.geometry import clip_capacity, geometry
 from xr_torch.pipeline.shadow import light_matrices_for_scene
-from xr_torch.raster import smem, stream
+from xr_torch.raster import dispatch, smem, stream
 from xr_torch.scene import presets
 from xr_torch.scene import procedural as proc
+from xr_torch.scene import texture
+from xr_torch.shading import blend
 from xr_torch.tools import gather, layers
 
 pytestmark = pytest.mark.cuda
@@ -220,7 +229,8 @@ def test_cuda_frame_equals_cpu_frame(cuda, name):
     fc = rc.readback(rc.step(scene, cam))
     b1 = "vis_stream_zgate" if stream.gated(p.config) else "vis_stream"  # config7: z_earlyout
     assert kernels.launches[b1] == (2 if name.startswith("config4") else int(name != "config1"))
-    assert sum(kernels.launches.values()) == kernels.launches[b1]
+    assert kernels.launches["blend_composite"] == int(name == "config4b")
+    assert sum(kernels.launches.values()) == kernels.launches[b1] + int(name == "config4b")
     cpu = convert.scene_to_torch(p.scene.replace(model_matrices=p.animate(1.7)[1]), "cpu")
     rh = Renderer(cpu, p.config, "cpu")
     fh = rh.readback(rh.step(cpu, cam))
@@ -502,7 +512,9 @@ def test_banded_frame_on_the_card_equals_unbanded(cuda, name):
     banded = s.readback(s.step(scene, cam))
     b1 = "vis_stream_zgate" if stream.gated(p.config) else "vis_stream"  # config5: z_earlyout
     assert kernels.launches[b1] == 4 + (name == "config4b")
-    assert sum(kernels.launches.values()) == kernels.launches[b1]
+    assert kernels.launches["blend_composite"] == (4 if name == "config4b" else 0)
+    assert sum(kernels.launches.values()) == (kernels.launches[b1]
+                                              + kernels.launches["blend_composite"])
     r = Renderer(scene, p.config, cuda)
     single = r.readback(r.step(scene, cam))
     assert banded.color.tobytes() == single.color.tobytes()
@@ -746,8 +758,8 @@ def test_graphed_frame_equals_render_step(cuda, case):
     """Renderer on the card captures the frame at its first step and
     replays it: every frame, the first included, equals render_step's
     eager frame bit for bit, stats included, with the same kernel launches
-    counted (a replay's from its graphs' kernel nodes); only config4b's
-    blend runs eagerly."""
+    counted (a replay's from its graphs' kernel nodes); no segment runs
+    eagerly, config4b's blend included."""
     p, scene = _graph_case(cuda, case)
     r = Renderer(scene, p.config, cuda)
     cam = p.animate(0.3)[0]
@@ -759,7 +771,8 @@ def test_graphed_frame_equals_render_step(cuda, case):
         _bit_equal(got, want)
         assert n_got == n_want
     eager = [s.name for s in r._captured.program.segments if s.graph is None]
-    assert eager == (["blend"] if p.config.blend else [])
+    assert eager == []
+    assert n_got["blend_composite"] == int(p.config.blend)
     if r._light is not None:  # the light_matrices= override reaches the shadow pass
         lv, lp = r._light
         lv = np.array(lv, np.float32)
@@ -881,8 +894,8 @@ def test_graphed_banded_frame_equals_render_step_sharded(cuda, case):
     step and replays it: every frame equals render_step_sharded's eager
     frame bit for bit, stats included, with the same visibility launches
     a frame (B1 or B2 once a band, plus the shadow map's; config5's gated
-    B1 once a band), and the unbanded Renderer's color, depth and
-    tris_setup; only config4b's blend runs eagerly."""
+    B1 once a band; config4b's blend kernel once a band), and the unbanded
+    Renderer's color, depth and tris_setup; no segment runs eagerly."""
     p, scene, s = _band_graph_case(cuda, case)
     n = p.config.num_shards
     cam = p.animate(1.0)[0]
@@ -895,14 +908,16 @@ def test_graphed_banded_frame_equals_render_step_sharded(cuda, case):
         _bit_equal(got, want)
         assert n_got == n_want
         b = max(n_got, key=n_got.get)
-        assert n_got[b] == n + has_shadow_pass(p.config) == sum(n_got.values())
+        blends = n_got["blend_composite"]
+        assert blends == (n if p.config.blend else 0)
+        assert n_got[b] == n + has_shadow_pass(p.config) == sum(n_got.values()) - blends
         single = r.step(scene, cam)
         assert torch.equal(got.color, single.color)
         assert torch.equal(got.depth.view(torch.int32), single.depth.view(torch.int32))
         assert int(got.stats["tris_setup"]) == int(single.stats["tris_setup"])
     (program,) = s._captured.programs.values()
     eager = [g.name for g in program.segments if g.graph is None]
-    assert eager == (["blend"] if p.config.blend else [])
+    assert eager == []
 
 
 def test_graphed_banded_present_equals_readback(cuda):
@@ -957,3 +972,89 @@ def test_graphed_banded_scene_swap_and_reshape(cuda):
     assert small.mesh.num_triangles < scene.mesh.num_triangles
     _bit_equal(s.step(small, cam), _eager_banded(s, small, cam)[0])
     assert s._captured is not captured
+
+
+BLEND_MODES = {"flat": MODE_FLAT, "gouraud": MODE_GOURAUD, "textured": MODE_TEXTURED,
+               "phong": MODE_PHONG}
+
+
+def blend_modes_preset(mode, textures="uniform", presets=presets, texture=texture,
+                       types=types):
+    """config4b at golden size (160x100, a 128^2 shadow map) in `mode`,
+    its panes textured: textures "uniform" (one 32^2 checkerboard, both
+    panes, repeat), "ragged" (a 32^2 and a 16^2 checkerboard, the upper
+    pane's map clamped) or None. presets, texture, types: the port's
+    modules, or the reference's, which have the same names."""
+    p = presets.small_preset(presets.config4_blend(), 160, 100, bin_capacity=8192,
+                             shadow_map_size=128)
+    m = p.scene.materials
+    rows = [{"base_color": tuple(float(c) for c in m.base_color[i]), "ka": float(m.ka[i]),
+             "kd": float(m.kd[i]), "ks": float(m.ks[i]), "shininess": float(m.shininess[i]),
+             "alpha": float(m.alpha[i])} for i in range(len(m.ka))]
+    pyr = None
+    if textures == "uniform":
+        pyr = texture.build_pyramid([texture.checkerboard(32, 4)])
+        rows[4]["tex_id"] = rows[5]["tex_id"] = 0
+    elif textures == "ragged":
+        pyr = texture.build_ragged_pyramid([texture.checkerboard(32, 4),
+                                            texture.checkerboard(16, 2)])
+        rows[4]["tex_id"], rows[5]["tex_id"], rows[5]["tex_addr"] = 0, 1, 1
+    scene = p.scene.replace(materials=types.Material.table(rows), textures=pyr)
+    return p._replace(scene=scene, config=dataclasses.replace(p.config, mode=mode))
+
+
+def blend_inputs(p, device, t=0.0, bands=1):
+    """What the blend stage of p's frame at t composites over, on device:
+    (tri, scene, eye, shadow, [(rgb, depth, y_offset, config) of each of
+    `bands` bands])."""
+    cam, mm = p.animate(t)
+    scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), device)
+    cfg = p.config
+    cap = clip_capacity(scene.mesh.num_triangles, cfg)
+    c, view, proj = renderer.camera_matrices(scene, cam, cfg)
+    shadow = {}
+    if has_shadow_pass(cfg):
+        shadow, _ = renderer.shadow_pass(scene, cfg, *light_matrices_for_scene(scene), cap)
+    tri, vis_tri = renderer.visible_triangles(scene, view, proj, cfg, cap)
+    _, hb, band_cfg = shard.band_config(cfg, bands) if bands > 1 else (0, cfg.height, cfg)
+    out = []
+    for b in range(bands):
+        tid, zbuf, _ = dispatch.visibility(vis_tri, band_cfg, cap, y_offset=b * hb)
+        depth = torch.where(torch.isinf(zbuf), 1.0, zbuf)
+        rgb = renderer.shade(tri, tid, scene, band_cfg, c.eye, shadow, None, depth, b * hb)
+        out.append((rgb, depth, b * hb, band_cfg))
+    return tri, scene, c.eye, shadow, out
+
+
+def same_f32(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("textures", ["uniform", "ragged"])
+@pytest.mark.parametrize("mode", sorted(BLEND_MODES))
+def test_blend_kernel_matches_plain(cuda, mode, textures):
+    """The blend kernel (composite_transparent on the card, one launch a
+    call) against its plain version (blend_composite_plain on the card's
+    tensors) and the whole-frame composite from the records, bit for bit
+    in f32, unbanded and in each of four bands (a band the panes miss
+    included)."""
+    p = blend_modes_preset(BLEND_MODES[mode], textures)
+    changed = 0
+    for bands in (1, 4):
+        tri, scene, eye, shadow, per_band = blend_inputs(p, cuda, bands=bands)
+        slots = blend.live_slots(tri, scene, p.config)
+        for rgb, depth, yo, cfg in per_band:
+            kernels.reset_launches()
+            got, overflow = blend.composite_transparent(rgb, depth, tri, scene, cfg, eye,
+                                                        y_offset=yo, live=slots, **shadow)
+            torch.cuda.synchronize()
+            assert kernels.launches["blend_composite"] == 1
+            plain = blend.blend_composite_plain(rgb, depth, tri, scene, cfg, eye, y_offset=yo,
+                                                live=slots, **shadow)
+            whole, _ = blend.composite_whole_frame(rgb, depth, tri, scene, cfg, eye,
+                                                   y_offset=yo, **shadow)
+            assert same_f32(got, plain), (bands, yo)
+            assert same_f32(got, whole), (bands, yo)
+            assert int(overflow) == 0
+            changed += int((got != rgb).any(-1).sum())
+    assert changed > 100

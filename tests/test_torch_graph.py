@@ -10,9 +10,9 @@ read of a tensor to the host and on any tensor made from host values
 ``unique``, ``torch.tensor``, ``torch.as_tensor``, ``torch.from_numpy``,
 and an index that is a list or a boolean mask): a captured stage may
 neither read the card's values (capture fails on it) nor copy a constant
-from the host each frame. Only
-the visibility kernels' plain versions, which stand for the CUDA kernels
-here, may read, and only config4b's blend stage runs eagerly. Also: a
+from the host each frame. Only the kernels' plain versions, which stand
+for the CUDA kernels here (the visibility kernels' and the blend
+composite's), may read, and no segment runs eagerly. Also: a
 second scene of the same shapes renders its own frame, the
 ``light_matrices`` override reaches the shadow pass, and the pieces the
 program is built from. The graphs themselves are captured and replayed
@@ -32,6 +32,7 @@ from xr_torch.app import graph
 from xr_torch.app import renderer as rd
 from xr_torch.raster import lists, records, smem, stream
 from xr_torch.scene import presets
+from xr_torch.shading import blend
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 PRESETS = {
@@ -125,6 +126,7 @@ def guard(monkeypatch):
 
     monkeypatch.setattr(stream, "vis_stream_plain", exempt(stream.vis_stream_plain))
     monkeypatch.setattr(smem, "vis_lists_plain", exempt(smem.vis_lists_plain))
+    monkeypatch.setattr(blend, "blend_composite_plain", exempt(blend.blend_composite_plain))
     return g
 
 
@@ -177,13 +179,13 @@ def _bit_equal(got, want):
 @pytest.mark.parametrize("name", sorted(PRESETS))
 def test_replayed_stages_equal_render_step(guard, name):
     """Inputs made at one camera, refilled with the golden one, the
-    segments run under the guard: render_step's frame bit for bit, and
-    only config4b's blend eager."""
+    segments run under the guard: render_step's frame bit for bit, and no
+    segment eager (config4b's blend too)."""
     p, t = _preset(name)
     fr = _Frames(guard, p, t + 0.5)
     cam = p.animate(t)[0]
     _bit_equal(fr.replayed(cam), fr.eager(cam))
-    assert guard.eager == (["blend"] if name == "config4b" else [])
+    assert guard.eager == []
 
 
 def test_second_scene_renders_its_own_frame(guard):

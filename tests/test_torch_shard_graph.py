@@ -7,8 +7,9 @@ bit (color, depth, every stat) in the cases of tests/test_torch_shard.py
 (which holds that eager frame to the reference's ShardedRenderer) and with
 a shade_hook. Each segment that is captured on a card runs under the guard
 of tests/test_torch_graph.py, which fails on any host read, list or mask
-index, or tensor made from host values; only the blend case's live-slot
-stage runs eagerly. Also: a second scene of the same shapes renders its own
+index, or tensor made from host values; no segment runs eagerly, the
+blend case's composite too (its plain version reads the live slots once a
+device). Also: a second scene of the same shapes renders its own
 frame, the segments carry the unbanded frame's span names and are as many,
 and a mesh of two devices (the CPU as "cpu" and as "cpu:0") gathers the
 frame of one. The graphs themselves are captured and replayed only on a
@@ -73,13 +74,13 @@ class _Bands:
 @pytest.mark.parametrize("name", GUARDED)
 def test_banded_segments_equal_render_step_sharded(guard, name):
     """Inputs made at one camera, refilled with the case's, the segments
-    run under the guard: render_step_sharded's frame bit for bit, and only
-    blend's live-slot stage eager."""
+    run under the guard: render_step_sharded's frame bit for bit, and no
+    segment eager."""
     fr = _Bands(guard, name)
     got = fr.replayed(fr.cam)
     assert got.color.shape == (fr.p.config.height, fr.p.config.width, 3)
     _bit_equal(got, fr.eager(fr.cam))
-    assert guard.eager == (["blend"] if name == "blend" else [])
+    assert guard.eager == []
 
 
 def test_banded_segments_with_a_shade_hook(guard):
@@ -123,7 +124,8 @@ def test_banded_segments_carry_the_unbanded_spans(name):
     unbanded = rd.frame_stages(p.config, cap)
     names = [(s.name, s.host) for s in graph.segments(banded)]
     assert names == [(s.name, s.host) for s in graph.segments(unbanded)]
-    assert ("blend", True) in names if p.config.blend else all(not h for _, h in names)
+    assert all(not h for _, h in names)
+    assert ("blend", False) in names if p.config.blend else ("blend", False) not in names
     assert len(banded) > len(unbanded)  # several bands' stages in one segment
 
 
@@ -138,4 +140,4 @@ def test_two_devices_gather_the_frame_of_one(guard, name):
     one = fr.eager(fr.cam, mesh=shard.make_band_mesh(fr.p.config.num_shards, ["cpu"]))
     _bit_equal(fr.eager(fr.cam), one)
     _bit_equal(fr.replayed(fr.cam), one)
-    assert guard.eager == (["blend"] * 2 if name == "blend" else [])
+    assert guard.eager == []

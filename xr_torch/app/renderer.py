@@ -8,8 +8,9 @@ shading, the blend pass (``blend``) and the u8 resolve — with shapes fixed
 by the config, eagerly: the reference's function before ``jax.jit``. Its
 stages after the camera are ``frame_stages``; ``Renderer`` on a card
 captures them once as CUDA graphs (``CapturedFrame``, ``app/graph.py``)
-and replays them each frame, as the reference's Renderer jits it. Only
-the blend stage reads the card's values on the host (its live slots).
+and replays them each frame, as the reference's Renderer jits it; no
+stage reads the card's values on the host (the blend stage's live slots
+stay on the card, composited by a kernel).
 ``readback_frame`` is the Present() replacement: a device-to-host copy that
 raises on any overflow counter and, under ``debug_checks``, names the first
 pipeline stage whose non-finite counter (``nf_*``) is not zero.
@@ -143,7 +144,7 @@ def blend_pass(rgb, depth, tri, scene: Scene, config: RenderConfig, eye, shadow:
                y_offset: int = 0, live=None):
     """The transparent records composited over the shaded frame (or band
     of rows from y_offset): (rgb, blend_overflow). live: the live
-    transparent slots and their boxes if already read (blend.live_records)."""
+    transparent slots if already made (blend.live_slots)."""
     return blend.composite_transparent(rgb, depth, tri, scene, config, eye, y_offset=y_offset,
                                        live=live, **shadow)
 
@@ -167,10 +168,10 @@ def frame_stages(config: RenderConfig, capacity: int, shade_hook=None) -> list:
     spans it runs under and a function of the frame's values so far,
     frame_inputs' first, that returns new ones): the shadow pass's
     geometry, visibility steps and maps (under shadow_pass); the camera
-    pass's geometry and visibility steps and its depth; shade, blend (it
-    reads the live transparent slots on the host: the one stage that is
-    never captured) and resolve; then the stats. The frame is the values
-    color, depth and stats."""
+    pass's geometry and visibility steps and its depth; shade, blend and
+    resolve; then the stats. No stage reads the card's values on the host,
+    so a card captures every one. The frame is the values color, depth and
+    stats."""
     stages = []
     shaded = config.width * config.height
     if has_shadow_pass(config):
@@ -181,8 +182,7 @@ def frame_stages(config: RenderConfig, capacity: int, shade_hook=None) -> list:
         stages.append(Stage(("shade",), functools.partial(_shade, config=config,
                                                            shade_hook=shade_hook)))
         if config.blend:
-            stages.append(Stage(("blend",), functools.partial(_blend, config=config),
-                                host=True))
+            stages.append(Stage(("blend",), functools.partial(_blend, config=config)))
         stages.append(Stage(("resolve",), lambda v: {"color": sm.resolve_u8(v["rgb"])}))
     stages.append(Stage((), functools.partial(_stats, config=config, shaded=shaded)))
     return stages
@@ -526,9 +526,9 @@ class Renderer(FramebufferPool):
     On a CUDA device the first ``step`` captures the frame and every later
     one replays it (``CapturedFrame``; ``xr/app/renderer.py:326-332`` jits
     render_step): one CUDA graph per stage span, with no copy from the host
-    but the camera's and no read of the card's values on the host, apart
-    from the blend stage, which reads its live transparent slots and runs
-    eagerly. A scene in the same tensors replays as it is (edits in place
+    but the camera's and no read of the card's values on the host (the
+    blend stage too: its kernel reads the live transparent slots on the
+    card). A scene in the same tensors replays as it is (edits in place
     are seen); one of the same shapes in other tensors is copied into the
     captured inputs first; another shape or config captures anew, as
     ``jit`` retraces. A capture or replay that fails raises, naming the

@@ -85,9 +85,9 @@ def sharded_stages(config: RenderConfig, mesh: list, capacity: int, shade_hook=N
     under the unbanded frame's spans, ordered by kind so that each kind is
     one segment: every band's bin_prep, every band's vis, the depths (band
     b's into rows [b * Hb, (b + 1) * Hb) of depth_pad), every band's shade;
-    under blend one stage that reads the live transparent slots on the
-    host, once, and composites every band (the one stage a card never
-    captures); every band's resolve into its rows of color_pad. Band b's
+    under blend one stage that makes the live transparent slots once and
+    composites every band; every band's resolve into its rows of
+    color_pad. Band b's
     values are prefixed b{b}_. On a mesh of one device the last stage is
     the gather (gather_bands), and the values then hold the frame: color,
     depth and stats. Returns {device: stages}, mesh[0]'s first."""
@@ -114,7 +114,7 @@ def sharded_stages(config: RenderConfig, mesh: list, capacity: int, shade_hook=N
                        for p, rows in bands]
             if config.blend:
                 stages.append(Stage(("blend",), functools.partial(
-                    _blend_bands, config=config, band_cfg=band_cfg, bands=bands), host=True))
+                    _blend_bands, config=config, band_cfg=band_cfg, bands=bands)))
             stages += [Stage(("resolve",), functools.partial(_resolve, prefix=p, rows=rows))
                        for p, rows in bands]
         out[dev] = stages
@@ -134,9 +134,10 @@ def _frame_buffers(v, config: RenderConfig, Hp: int) -> dict:
 
 def _blend_bands(v, config: RenderConfig, band_cfg: RenderConfig, bands: list) -> dict:
     """The transparent records composited over each band of the device:
-    the live slots read to the host once (blend.live_records), then each
-    band's composite at its y_offset."""
-    live = blend.live_records(v["tri"], v["scene"], config)
+    the live slots made once on the device (blend.live_slots), then each
+    band's composite at its y_offset (on a card one kernel launch a band;
+    on the CPU the plain version, which reads the slots to the host once)."""
+    live = blend.live_slots(v["tri"], v["scene"], config)
     out = {}
     for p, rows in bands:
         rgb, overflow = renderer.blend_pass(v[p + "rgb"], v[p + "depth"], v["tri"], v["scene"],
@@ -272,8 +273,8 @@ class ShardedRenderer(renderer.FramebufferPool):
     a scene in the same tensors replays as it is, one of the same shapes in
     other tensors is copied into the captured inputs, another shape
     captures anew, as ``jit`` retraces; a capture or replay that fails
-    raises, naming the stage. Only the blend stage (its live slots) runs
-    eagerly between the graphs. A frame equals ``render_step_sharded``'s
+    raises, naming the stage. Every stage is captured, the blend's
+    too. A frame equals ``render_step_sharded``'s
     bit for bit, which runs the same stages eagerly and is what ``step``
     runs on the CPU."""
 

@@ -7,6 +7,8 @@ Kernels (one launch wrapper each):
   lane_gather   csrc/gather.cu      out[s, j] = tab[s, idx[j]]
   quad_gather   csrc/gather.cu      out[n] = sum_s tab[s, idx[n]] (u32, wrapping)
   quad_gather1  csrc/gather.cu      out[n] = tab[0, idx[n]]
+  blend_composite csrc/blend.cu     the transparent slots composited over a
+                                    frame or band (shading/blend.py)
 The two visibility kernels share their record fold (csrc/fold_records.cuh):
 a launch is a small clear kernel followed by the fold kernel over the work
 items the prep lists, counted as one launch. The gathers carry the
@@ -25,9 +27,9 @@ launch status raises: there is no fallback on a CUDA tensor.
 a frame went through the kernel. A launch wrapper counts a launch that runs;
 one called while a CUDA graph is captured records the kernel into the graph
 and counts nothing. A replayed graph launches the kernel nodes it holds
-without calling a wrapper: ``graph_launches`` reads the visibility kernels
-among them from the graph the driver built (its kernel nodes, by name), and
-each replay counts those (``count_replay``).
+without calling a wrapper: ``graph_launches`` reads the visibility and
+blend kernels among them from the graph the driver built (its kernel
+nodes, by name), and each replay counts those (``count_replay``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = [CSRC / "vis_stream.cu", CSRC / "vis_lists.cu", CSRC / "gather.cu"]
+SOURCES = [CSRC / "vis_stream.cu", CSRC / "vis_lists.cu", CSRC / "gather.cu",
+           CSRC / "blend.cu"]
 HEADERS = [CSRC / "fold_records.cuh"]
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "xr_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -53,7 +56,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 TILE_W = 128  # tile width the visibility kernels take (csrc/fold_records.cuh)
 
 launches = {"vis_stream": 0, "vis_stream_zgate": 0, "vis_lists": 0, "lane_gather": 0,
-            "quad_gather": 0, "quad_gather1": 0}
+            "quad_gather": 0, "quad_gather1": 0, "blend_composite": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -66,11 +69,12 @@ def reset_launches() -> None:
 
 
 # the fold kernel of each visibility launch (the clear kernel before it is
-# not counted), by the words of its name, gated first: the gated kernel's
-# name holds the ungated one's
+# not counted) and the blend kernel, by the words of its name, gated first:
+# the gated kernel's name holds the ungated one's
 KERNEL_NAMES = {"vis_stream_zgate": ("zgate_fold_kernel", "StreamWalk"),
                 "vis_stream": ("fold_kernel", "StreamWalk"),
-                "vis_lists": ("fold_kernel", "ListWalk")}
+                "vis_lists": ("fold_kernel", "ListWalk"),
+                "blend_composite": ("blend_composite_kernel",)}
 
 
 def launch_name(kernel: str):
@@ -128,7 +132,7 @@ def _cu_check(what: str, err: int) -> None:
 
 
 def graph_launches(stream) -> dict:
-    """The visibility kernels in the CUDA graph that `stream` is capturing,
+    """The counted kernels in the CUDA graph that `stream` is capturing,
     by launches key (the kernel nodes recorded so far): what each replay of
     the graph launches."""
     cu, by = _driver(), ctypes.byref
@@ -229,6 +233,8 @@ def library() -> ctypes.CDLL:
             for fn in (lib.xr_lane_gather, lib.xr_quad_gather, lib.xr_quad_gather1,
                        lib.xr_lane_gather_scratch, lib.xr_quad_gather_scratch):
                 fn.restype = i
+            lib.xr_blend_composite.argtypes = [p] * 10 + [i] * 14 + [ctypes.c_float, p]
+            lib.xr_blend_composite.restype = i
             lib.xr_cuda_error_string.argtypes = [i]
             lib.xr_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -451,4 +457,54 @@ def quad_gather1(idx, tab):
     _launch("quad_gather1", library().xr_quad_gather1, tab.data_ptr(), idx.data_ptr(),
             out.data_ptr(), idx.numel(), PP,
             torch.cuda.current_stream(tab.device).cuda_stream)
+    return out
+
+
+def blend_composite(color, depth, table, count, consts, shadow, quads, level_size, level_base,
+                    *, mode, attr_width, y_offset, subpixel, n_dir, n_point, bias, levels):
+    """Launch the blend composite (csrc/blend.cu) on the current stream:
+    the live slots of the slot table composited over color in source
+    order. Returns a new (H, W, 3) f32 color.
+
+    color (H, W, 3) f32 and depth (H, W) f32: rows [y_offset, y_offset + H)
+    of the frame; table (cap, 37 + 3 * attr_width) f32 (shading/blend.py
+    FIELDS); count () or (1,) i32, the live slots; consts f32: eye (3),
+    ambient (3), the n_dir directional lights' directions then colors, the
+    n_point point lights' positions then colors (3 each), and with a shadow
+    map the light's view-projection (16); shadow (Hs, Ws) f32 or None;
+    quads (rows, 13) i32, level_size and level_base (ntex * levels) i32, or
+    None with levels 0 — all on one CUDA device."""
+    dev = color.device
+    H, W = depth.shape
+    _check("color", color, torch.float32, (H, W, 3), dev)
+    _check("depth", depth, torch.float32, (H, W), dev)
+    _check("table", table, torch.float32, (table.shape[0], 37 + 3 * attr_width), dev)
+    _check("count", count, torch.int32, None, dev)
+    if count.numel() != 1:
+        raise ValueError("count: one int")
+    lights = 6 + 6 * (n_dir + n_point) + (16 if shadow is not None else 0)
+    _check("consts", consts, torch.float32, (lights,), dev)
+    hs = ws = 0
+    if shadow is not None:
+        _check("shadow", shadow, torch.float32, None, dev)
+        hs, ws = shadow.shape
+    if (quads is None) != (levels == 0):
+        raise ValueError("quads and levels: both or neither")
+    if quads is not None:
+        _check("quads", quads, torch.int32, None, dev)
+        ntex = level_size.shape[0] // levels
+        for n, t in (("level_size", level_size), ("level_base", level_base)):
+            _check(n, t, torch.int32, (ntex * levels,), dev)
+    lib = library()
+    out = torch.empty_like(color)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _launch("blend_composite", lib.xr_blend_composite,
+            table.data_ptr(), count.data_ptr(), consts.data_ptr(), color.data_ptr(),
+            depth.data_ptr(), out.data_ptr(), ptr(shadow), ptr(quads), ptr(level_size),
+            ptr(level_base), H, W, y_offset, subpixel, mode, attr_width, table.shape[1],
+            table.shape[0], n_dir, n_point, hs, ws, 0 if quads is None else quads.shape[1],
+            levels, bias, torch.cuda.current_stream(dev).cuda_stream)
     return out

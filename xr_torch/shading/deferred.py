@@ -101,11 +101,27 @@ def _pack_records(tri, A: int, config: RenderConfig, uv_slot):
 
 
 def _sample_texture(scene, config, u, v, lod6, e0, e1, e2, denom, mat_id):
-    """Trilinear fetch with the analytic per-pixel LOD: u = Nu/D, so
-    du/dx = (dNu/dx - u * dD/dx) / D with D = denom * area2. lod6 and mat_id
-    broadcast against u (per pixel here, per record in the blend pass).
-    Returns u's shape + (3,); white where the material has no texture."""
+    """Trilinear fetch with the analytic per-pixel LOD (sample_texture_at)
+    of the materials mat_id, which broadcasts against u. Returns u's shape
+    + (3,); white where the material has no texture."""
     pyr = scene.textures
+    mats = scene.materials
+    tex_id = mats.tex_id[mat_id.long()]
+    if hasattr(pyr, "base_size_per_tex"):  # RaggedPyramid: per-pixel scale
+        base = pyr.base_size_per_tex[torch.where(tex_id >= 0, tex_id, 0).long()].to(F32)
+    else:
+        base = pyr.base_size
+    addr = None if mats.tex_addr is None else mats.tex_addr[mat_id.long()]
+    return sample_texture_at(pyr, config, u, v, lod6, e0, e1, e2, denom, tex_id, base, addr)
+
+
+def sample_texture_at(pyr, config, u, v, lod6, e0, e1, e2, denom, tex_id, base, addr):
+    """Trilinear fetch with the analytic per-pixel LOD: u = Nu/D, so
+    du/dx = (dNu/dx - u * dD/dx) / D with D = denom * area2. lod6, tex_id
+    (i32, -1 = none), base (the LOD's texel scale: an int, or f32 per
+    texture) and addr (i32 address mode, or None: repeat) broadcast against
+    u (per pixel in the deferred pass, per record in the blend pass).
+    Returns u's shape + (3,); white where tex_id < 0."""
     area2 = (e0 + e1 + e2).to(F32)
     D = denom * area2
     invD = 1.0 / torch.where(D == 0.0, torch.full_like(D, 1e-30), D)
@@ -113,16 +129,9 @@ def _sample_texture(scene, config, u, v, lod6, e0, e1, e2, denom, mat_id):
     dudy = (lod6[3] - u * lod6[1]) * invD
     dvdx = (lod6[4] - v * lod6[0]) * invD
     dvdy = (lod6[5] - v * lod6[1]) * invD
-    mats = scene.materials
-    tex_id = mats.tex_id[mat_id.long()]
     has_tex = tex_id >= 0
     tid_safe = torch.where(has_tex, tex_id, 0)
-    if hasattr(pyr, "base_size_per_tex"):  # RaggedPyramid: per-pixel scale
-        base = pyr.base_size_per_tex[tid_safe.long()].to(F32)
-    else:
-        base = pyr.base_size
     lod = sm.lod_from_derivs(dudx, dvdx, dudy, dvdy, base)
-    addr = None if mats.tex_addr is None else mats.tex_addr[mat_id.long()]
     texc = sm.sample_trilinear(pyr, tid_safe, u, v, lod, addr=addr,
                                mip_math=config.mip_math)
     return torch.where(has_tex[..., None], texc, 1.0)
