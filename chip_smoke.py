@@ -8,8 +8,8 @@ Phases, each of which raises on failure (exit code != 0, no final line):
   2. build: compiles the CUDA kernels from xr_torch/csrc/ (nvcc, one process
      per source, started together) and prints ptxas's registers and spill
      stores of each fold kernel (the ungated B1 and B2, the gated B1 with
-     and without z_chunk_gate), none of which may spill, and of the blend
-     kernel
+     and without z_chunk_gate) and of the two blend kernels (the slot table
+     and the composite), none of which may spill
      native: the host codec (xr_torch/native, g++ into build/) must build;
      the courtyard's OBJ parsed natively and by Python gives equal arrays,
      a 1920x1080 PNG written natively and by Python decodes to the same
@@ -108,18 +108,21 @@ Phases, each of which raises on failure (exit code != 0, no final line):
        identical color, depth and stats
      - config4b (config4 with two blended panes) at 1920x1080, 30 frames on
        config4's cameras: no blend overflow, config4's depth, other colors,
-       the blend kernel (blend_composite) once a frame; the blend stage's
-       device time beside that of the composite that ran all its chunks
-       (127.686 ms, another call; PERF.md), and the live chunks of each
-       frame (ceil(count / blend_chunk)); then the blend kernel against its
+       the blend kernels (blend_slots, blend_composite) once a frame; the
+       blend stage's device time beside that of the composite that ran all
+       its chunks (127.686 ms, another call; PERF.md), and the live chunks
+       of each frame (ceil(count / blend_chunk)); then at five of the
+       benchmark cell's t the slot-table kernel against its plain version
+       (blend.live_slots_plain: meta vector, ids, chunk boxes and rows, bit
+       for bit), and the blend kernel, in place on a copy, against its
        plain version (blend.blend_composite_plain, the cropped torch
        composite: each live chunk on its live slots over its screen box)
        and the whole-frame composite on all slots
-       (blend.composite_whole_frame) at five of the benchmark cell's t,
-       unbanded and in each of 4 bands: the same f32 bytes, else the phase
-       fails; each frame's live slots and box share, and the three
-       composites' device ms and memory, in turns, beside the card's name
-       and power limit
+       (blend.composite_whole_frame), unbanded and in each of 4 bands: the
+       same f32 bytes, and every pixel no fragment lands on with its input
+       bits, else the phase fails; each frame's live slots and box share,
+       the composites' device ms and memory and the slot tables' device
+       ms, in turns, beside the card's name and power limit
      - config6 (the courtyard loaded from its OBJ, MTL and PNG files, Phong
        with a 1024x1024 shadow map, a ragged texture pyramid, one clamped
        map) at 1920x1080, 30 frames, the stream kernel twice a frame; then
@@ -242,8 +245,10 @@ BIN_OPTIONS = {
 }
 SOURCES = {
     "vis_stream": ("xr_torch/csrc/vis_stream.cu", "xr/raster/pallas_stream.py:80"),
-    # no Pallas kernel: the reference's blend composite, an XLA stage
+    # no Pallas kernel: the reference's blend composite, an XLA stage, and
+    # its source order and record gathers
     "blend_composite": ("xr_torch/csrc/blend.cu", "xr/shading/blend.py:95"),
+    "blend_slots": ("xr_torch/csrc/blend.cu", "xr/shading/blend.py:76"),
     # B1 under z_earlyout: the gates of the record loop (B3) on the card
     "vis_stream_zgate": ("xr_torch/csrc/vis_stream.cu", "xr/raster/pallas_smem.py:138"),
     "vis_lists": ("xr_torch/csrc/vis_lists.cu", "xr/raster/pallas_smem.py:346"),
@@ -393,12 +398,12 @@ def phase_build() -> None:
         log(f"build: ptxas, fold kernels (walk, gate): {folds}")
         if len(folds) != 4 or any(v["spill_bytes"] for v in folds.values()):
             raise AssertionError(f"build: a fold kernel spills or is missing: {folds}")
-        m = re.search(r"Function properties for (_ZN3xrb22blend_composite_kernel\w+)\n"
-                      r".*?(\d+) bytes spill stores.*?\n.*?Used (\d+) registers", out.getvalue())
-        if m is None:
-            raise AssertionError("build: ptxas reported no blend_composite_kernel")
-        log(f"build: ptxas, blend_composite_kernel: {m.group(3)} registers, "
-            f"{m.group(2)} bytes of spill stores")
+        for key in ("blend_slots", "blend_composite"):
+            usage = kernels.ptxas_usage(out.getvalue(), key)
+            if usage is None or usage["spill_bytes"]:
+                raise AssertionError(f"build: the {key} kernel spills or is missing: {usage}")
+            log(f"build: ptxas, {kernels.KERNEL_NAMES[key][0]}: {usage['registers']} "
+                f"registers, {usage['spill_bytes']} bytes of spill stores")
 
 
 def phase_native() -> None:
@@ -1015,11 +1020,12 @@ def phase_golden(dev) -> None:
             raise AssertionError(f"golden mismatch: {name}")
         # config1 renders by brute force (no kernel); the others stream,
         # the shadow-mapped ones twice (the shadow map, then the frame);
-        # config4b's blend kernel once
+        # config4b's blend kernels once each
         want = 0 if name == "config1" else 2 if name in SHADOW_EDGE else 1
         blends = int(p.config.blend)
         if (launched[_b1(p.config)] != want or launched["blend_composite"] != blends
-                or sum(launched.values()) != want + blends):
+                or launched["blend_slots"] != blends
+                or sum(launched.values()) != want + 2 * blends):
             raise AssertionError(f"{name}: unexpected kernel launches {launched}")
 
 
@@ -1129,7 +1135,7 @@ def _coverage_between(frames, lo, hi) -> None:
 
 def phase_main_path(dev, smi: str):
     """Returns (the launches of each kernel, summed over the runs; the
-    blend kernel's numbers, _blend_crop_check)."""
+    blend kernels' numbers, _blend_crop_check)."""
     total = dict.fromkeys(KERNELS, 0)
 
     def count(launches):
@@ -1228,7 +1234,7 @@ def phase_main_path(dev, smi: str):
     p, _, scene = _setup(dev, _preset("config4b"), 1920, 1080, 0.0)
     times, frames, launches = _run_frames(dev, scene, p.config, cams)
     if (launches["vis_stream"] < 2 * len(cams) or launches["vis_lists"]
-            or launches["blend_composite"] < len(cams)):
+            or launches["blend_composite"] < len(cams) or launches["blend_slots"] < len(cams)):
         raise AssertionError(f"config4b: launches {launches} in {len(cams)} frames")
     for i, (f, g) in enumerate(zip(frames, runs["auto"])):
         if int(f.stats["blend_overflow"]) or not np.array_equal(f.depth, g.depth):
@@ -1257,9 +1263,10 @@ def phase_main_path(dev, smi: str):
         times, got, launches = _run_frames(dev, sc, cfg, cams[:5], banded=True)
         kernel = "vis_lists" if backend == "pallas_smem" else "vis_stream"
         other = "vis_stream" if kernel == "vis_lists" else "vis_lists"
-        blends = n * 5 if pp.config.blend else 0
+        blends = n * 5 if pp.config.blend else 0  # one a band; the slot table one a frame
         if (launches[kernel] != (1 + n) * 5 or launches[other]
-                or launches["blend_composite"] != blends):
+                or launches["blend_composite"] != blends
+                or launches["blend_slots"] != (5 if pp.config.blend else 0)):
             raise AssertionError(f"{label} in {n} bands: launches {launches} in 5 frames")
         count(launches)
         _same_bytes(f"{label} in {n} bands against unbanded", got, want[:5])
@@ -1384,46 +1391,99 @@ def _blend_chunks(p, scene, cams) -> list:
 BLEND_CROP_TIMES = (0.05, 3.0, 6.05, 9.0, 16.0)  # inside config4b_1080p's frames
 
 
-def _fragments(live, depth, cfg) -> int:
-    """The transparent fragments the composite shades over the frame's
-    depth: the live slots' covered pixels in their boxes, inside the depth
-    range and in front of the opaque depth (blend.fragment_mask)."""
+def _blend_work(live, depth, cfg, y_offset=0) -> dict:
+    """What the composite must touch over the frame's (band's) depth, the
+    live slots over the union of their boxes (blend.fragment_mask): the
+    transparent fragments it shades (covered, inside the depth range, in
+    front of the opaque depth), the pixels a fragment lands on (their color
+    read and written) and the pixels a live slot covers (their depth
+    read)."""
     from xr_torch.core import fixedpoint as fp
     from xr_torch.shading import blend
 
     H, W = depth.shape
-    ch = min(cfg.blend_chunk, cfg.blend_capacity)
-    n = 0
-    for c, (y0, y1, x0, x1) in enumerate(live.boxes):
-        y0, y1, x0, x1 = max(y0, 0), min(y1, H), max(x0, 0), min(x1, W)
-        if y0 >= y1 or x0 >= x1:
-            continue
-        rec = blend.unpack_slots(live.table[c * ch : min((c + 1) * ch, live.count)],
-                                 cfg.attr_width)
-        px = fp.pixel_center_fixed(torch.arange(x0, x1, device=depth.device), cfg.subpixel)
-        py = fp.pixel_center_fixed(torch.arange(y0, y1, device=depth.device), cfg.subpixel)
-        n += int(blend.fragment_mask(rec, px, py, depth[y0:y1, x0:x1])[0].sum())
-    return n
+    boxes = live.boxes
+    out = {"fragments": 0, "fragment_pixels": 0, "covered_pixels": 0}
+    if not boxes:
+        return out
+    y0, y1 = max(min(b[0] for b in boxes), y_offset), min(max(b[1] for b in boxes), y_offset + H)
+    x0, x1 = max(min(b[2] for b in boxes), 0), min(max(b[3] for b in boxes), W)
+    if y0 >= y1 or x0 >= x1:
+        return out
+    rec = blend.unpack_slots(live.table[: live.count], cfg.attr_width)
+    px = fp.pixel_center_fixed(torch.arange(x0, x1, device=depth.device), cfg.subpixel)
+    py = fp.pixel_center_fixed(torch.arange(y0, y1, device=depth.device), cfg.subpixel)
+    mask, _ = blend.fragment_mask(rec, px, py, depth[y0 - y_offset:y1 - y_offset, x0:x1])
+    cov, _ = fp.coverage(rec.xs[:, None, None, :], rec.ys[:, None, None, :],
+                         px[None, None, :], py[None, :, None])
+    return {"fragments": int(mask.sum()), "fragment_pixels": int(mask.any(0).sum()),
+            "covered_pixels": int(cov.any(0).sum())}
+
+
+def _slots_err(got, want, cfg) -> float:
+    """The largest absolute difference between two slot tables' live
+    values: the meta vector, ids and chunk boxes, and each field of the
+    live rows (f32 fields as floats, integer fields as integers)."""
+    from xr_torch.shading import blend
+
+    n = int(want.count)
+    err = max(float((got.meta - want.meta).abs().max()),
+              float((got.ids[:n] - want.ids[:n]).abs().max()) if n else 0.0,
+              float((got.boxes - want.boxes).abs().max()))
+    a = blend.unpack_slots(got.table[:n], cfg.attr_width)
+    b = blend.unpack_slots(want.table[:n], cfg.attr_width)
+    for name, _ in blend.FIELDS:
+        if n:
+            x, y = getattr(a, name), getattr(b, name)
+            d = (x - y).abs() if x.is_floating_point() else (x.long() - y.long()).abs()
+            err = max(err, float(d.max()))
+    return err
+
+
+def _slot_bytes(tri, slots, cfg, materials) -> tuple:
+    """(bytes, f32 operations, the count in words) of the slot table's
+    work: each record's valid flag and material read once, the alpha
+    column, each transparent record's source id, each live record's
+    fields and material row once; the live rows, ids, chunk boxes and meta
+    written once. Operations: a compare a record, the six LOD terms' 36 a
+    live row."""
+    C, A = tri.xs.shape[0], cfg.attr_width
+    n, total = int(slots.count), int(slots.total)
+    width = slots.table.shape[1]
+    nchunks = slots.boxes.shape[0]
+    reads = C * 5 + materials * 4 + total * 4 + n * (4 * (15 + 3 * A + 1) + 4 * 11)
+    writes = n * (4 * width + 8) + nchunks * 16 + 4 * 8
+    ops = C + 36 * n
+    return reads + writes, ops, (f"{C} records x 5 B, {materials} alphas, {total} source ids, "
+                                 f"{n} live records x {4 * (15 + 3 * A + 1) + 4 * 11} B read; "
+                                 f"{n} rows x {4 * width + 8} B, {nchunks} boxes, the meta "
+                                 "written")
 
 
 def _blend_crop_check(dev, p, scene, smi: str) -> dict:
-    """The blend kernel (composite_transparent on the card) against its
+    """The slot-table kernel (live_slots on the card) against its plain
+    version (blend.live_slots_plain), bit for bit; the blend kernel
+    (composite_transparent on the card, in place on a copy) against its
     plain version (blend.blend_composite_plain: the cropped torch
     composite, the live slots read to the host) and the whole-frame
-    composite on all slots (blend.composite_whole_frame) at
-    BLEND_CROP_TIMES, unbanded and in 4 bands: the same f32 bytes, else the
-    run fails. Logs each frame's live slots and the box's share of the
-    frame (of the band); at the first time the three composites' device ms
-    in turns (kernel, crop, whole frame, whole frame, crop, kernel: the
-    kernel's launch alone with a cold L2 behind a device spin, the torch
-    composites by CUDA events around 10 calls) beside the card's name and
-    power limit, and their memory. Returns the kernel's numbers for the kernels line (its
-    time, its plain version's, its bound: the frame's color read and
-    written, the depth of the live boxes and the slot table over the
-    memory rate, or the shaded fragments' f32 operations over the FP32
-    peak)."""
+    composite on all slots (blend.composite_whole_frame), the same f32
+    bytes, and every pixel no fragment lands on with its input's bits; at
+    BLEND_CROP_TIMES, unbanded and in 4 bands, else the run fails. Logs
+    each frame's live slots and the box's share of the frame (of the band);
+    at the first time the three composites' device ms in turns (kernel,
+    crop, whole frame, whole frame, crop, kernel: the kernel's launch alone
+    with a cold L2 behind a device spin, the torch composites by CUDA
+    events around 10 calls) and the slot tables' (kernel, plain, plain,
+    kernel: both cold behind a device spin), beside the card's name and
+    power limit, and the composites' memory. Returns both kernels' numbers
+    for the kernels line (their time, their plain versions', their bounds:
+    for the composite the color of the pixels a fragment lands on read and
+    written, the depth of the covered pixels, the table, or the shaded
+    fragments' f32 operations over the FP32 peak; for the slot table
+    _slot_bytes)."""
     from xr_torch import kernels
     from xr_torch.app import renderer
+    from xr_torch.core import fixedpoint as fp
     from xr_torch.dist import shard
     from xr_torch.pipeline.shadow import light_matrices_for_scene
     from xr_torch.raster import dispatch
@@ -1436,9 +1496,9 @@ def _blend_crop_check(dev, p, scene, smi: str) -> dict:
     shadow, _ = renderer.shadow_pass(scene, cfg, *light, cap)
     n = 4
     _, hb, band = shard.band_config(cfg, n)
-    err = 0.0
+    err = slot_err = 0.0
 
-    def same(label, kernel, plain, whole):
+    def same(label, kernel, plain, whole, before, live, depth, yo=0):
         nonlocal err
         for what, want in (("its plain version", plain), ("the whole-frame composite", whole)):
             err = max(err, float((kernel - want).abs().max()))
@@ -1446,6 +1506,15 @@ def _blend_crop_check(dev, p, scene, smi: str) -> dict:
                 bad = int((kernel != want).any(-1).sum())
                 raise AssertionError(f"config4b {label}: the blend kernel differs from {what} "
                                      f"at {bad} pixels")
+        # the pixels no fragment lands on keep their bits
+        rec = blend.unpack_slots(live.table[: live.count], cfg.attr_width)
+        H, W = depth.shape
+        px = fp.pixel_center_fixed(torch.arange(W, device=dev), cfg.subpixel)
+        py = fp.pixel_center_fixed(torch.arange(yo, yo + H, device=dev), cfg.subpixel)
+        kept = ~blend.fragment_mask(rec, px, py, depth)[0].any(0)
+        if not torch.equal(kernel.view(torch.int32)[kept], before.view(torch.int32)[kept]):
+            raise AssertionError(f"config4b {label}: the blend kernel wrote a pixel no "
+                                 "fragment lands on")
 
     def share(live, rows, width):
         area = 0
@@ -1460,17 +1529,34 @@ def _blend_crop_check(dev, p, scene, smi: str) -> dict:
         c, view, proj = renderer.camera_matrices(scene, cam, cfg)
         tri, tid, depth, _ = renderer.depth_pass(scene, view, proj, cfg, cap)
         rgb = renderer.shade(tri, tid, scene, cfg, c.eye, shadow)
-        slots = blend.live_slots(tri, scene, cfg)
-        live = blend.live_records(tri, scene, cfg, slots)
-        args = (rgb, depth, tri, scene, cfg, c.eye)
         kernels.reset_launches()
-        got, overflow = blend.composite_transparent(*args, live=slots, **shadow)
+        slots = blend.live_slots(tri, scene, cfg)
         torch.cuda.synchronize()
-        if kernels.launches["blend_composite"] != 1 or int(overflow):
+        if kernels.launches["blend_slots"] != 1 or sum(kernels.launches.values()) != 1:
+            raise AssertionError(f"config4b t={t}: the slot table launched {kernels.launches}")
+        plain_slots = blend.live_slots_plain(tri, scene, cfg)
+        slot_err = max(slot_err, _slots_err(slots, plain_slots, cfg))
+        k = int(plain_slots.count)
+        if not (torch.equal(slots.meta, plain_slots.meta)
+                and torch.equal(slots.ids[:k], plain_slots.ids[:k])
+                and torch.equal(slots.boxes, plain_slots.boxes)
+                and torch.equal(slots.table[:k].view(torch.int32),
+                                plain_slots.table[:k].view(torch.int32))):
+            raise AssertionError(f"config4b t={t}: the slot-table kernel differs from its plain "
+                                 f"version: meta {slots.meta.tolist()} against "
+                                 f"{plain_slots.meta.tolist()}")
+        live = blend.live_records(tri, scene, cfg, slots)
+        args = (depth, tri, scene, cfg, c.eye)
+        kernels.reset_launches()
+        color = rgb.clone()
+        got, overflow = blend.composite_transparent(color, *args, live=slots, **shadow)
+        torch.cuda.synchronize()
+        if (kernels.launches["blend_composite"] != 1 or sum(kernels.launches.values()) != 1
+                or int(overflow) or got is not color):
             raise AssertionError(f"config4b t={t}: launches {kernels.launches}, overflow "
-                                 f"{int(overflow)}")
-        same(f"t={t}", got, blend.blend_composite_plain(*args, live=slots, **shadow),
-             blend.composite_whole_frame(*args, **shadow)[0])
+                                 f"{int(overflow)}, in place {got is color}")
+        same(f"t={t}", got, blend.blend_composite_plain(rgb.clone(), *args, live=slots, **shadow),
+             blend.composite_whole_frame(rgb, *args, **shadow)[0], rgb, live, depth)
         shares = []
         vis_tri = tri.replace(valid=blend.opaque_valid(tri, scene))
         for b in range(n):
@@ -1478,28 +1564,39 @@ def _blend_crop_check(dev, p, scene, smi: str) -> dict:
             btid, bz, _ = dispatch.visibility(vis_tri, band, cap, y_offset=yo)
             bdepth = torch.where(torch.isinf(bz), 1.0, bz)
             brgb = renderer.shade(tri, btid, scene, band, c.eye, shadow, None, bdepth, yo)
-            bargs = (brgb, bdepth, tri, scene, band, c.eye)
+            bargs = (bdepth, tri, scene, band, c.eye)
             same(f"t={t} band {b} of {n}",
-                 blend.composite_transparent(*bargs, y_offset=yo, live=slots, **shadow)[0],
-                 blend.blend_composite_plain(*bargs, y_offset=yo, live=slots, **shadow),
-                 blend.composite_whole_frame(*bargs, y_offset=yo, **shadow)[0])
+                 blend.composite_transparent(brgb.clone(), *bargs, y_offset=yo, live=slots,
+                                             **shadow)[0],
+                 blend.blend_composite_plain(brgb.clone(), *bargs, y_offset=yo, live=slots,
+                                             **shadow),
+                 blend.composite_whole_frame(brgb, *bargs, y_offset=yo, **shadow)[0], brgb, live,
+                 bdepth, yo)
             shares.append(share(live, range(yo, yo + hb), cfg.width))
-        log(f"config4b blend t={t}: {live.count} live slots, boxes {live.boxes}, "
-            f"{share(live, range(cfg.height), cfg.width):.4f} of the frame; bands of {hb} rows: "
-            + ", ".join(f"{s:.4f}" for s in shares) + "; the kernel's f32 bytes are its plain "
-            "version's and the whole-frame composite's, unbanded and in every band")
+        log(f"config4b blend t={t}: {live.count} live slots, boxes {live.boxes}, union "
+            f"{slots.union.tolist()}, {share(live, range(cfg.height), cfg.width):.4f} of the "
+            f"frame; bands of {hb} rows: " + ", ".join(f"{s:.4f}" for s in shares)
+            + "; the slot-table kernel's rows are its plain version's, the composite's f32 "
+            "bytes its plain version's and the whole-frame composite's, unbanded and in every "
+            "band, and no pixel outside the fragments written")
         if t == BLEND_CROP_TIMES[0]:
-            launch = blend.kernel_call(rgb, depth, slots, scene, cfg, c.eye, **shadow)
+            launch = blend.kernel_call(rgb.clone(), depth, slots, scene, cfg, c.eye, **shadow)
+            slot_launch = blend.slots_call(tri, scene, cfg)
             flush = flush_buffer(dev)
             fns = {"kernel": launch,
-                   "crop": lambda: blend.blend_composite_plain(*args, **shadow),
-                   "whole frame": lambda: blend.composite_whole_frame(*args, **shadow)}
+                   "crop": lambda: blend.blend_composite_plain(rgb.clone(), *args, **shadow),
+                   "whole frame": lambda: blend.composite_whole_frame(rgb, *args, **shadow)}
             ms = {k: [] for k in fns}
             for k in ("kernel", "crop", "whole frame", "whole frame", "crop", "kernel"):
                 # the kernel alone, cold L2, queued behind a device spin; the
                 # torch composites read the host, so events around 10 calls
                 ms[k].append(device_ms(launch, 20, flush=flush)[0] if k == "kernel"
                              else cuda_ms(fns[k], 10))
+            slot_ms = {"kernel": [], "plain": []}
+            slot_fns = {"kernel": slot_launch,
+                        "plain": lambda: blend.live_slots_plain(tri, scene, cfg)}
+            for k in ("kernel", "plain", "plain", "kernel"):
+                slot_ms[k].append(device_ms(slot_fns[k], 20, flush=flush)[0])
             del flush
             peaks = {}
             for k in ("kernel", "crop"):
@@ -1508,19 +1605,21 @@ def _blend_crop_check(dev, p, scene, smi: str) -> dict:
                 base = torch.cuda.memory_allocated(dev)
                 fns[k]()
                 peaks[k] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
-            frags = _fragments(live, depth, cfg)
+            work = _blend_work(live, depth, cfg)
             box_px = sum(max(min(y1, cfg.height) - max(y0, 0), 0)
                          * max(min(x1, cfg.width) - max(x0, 0), 0)
                          for y0, y1, x0, x1 in live.boxes)
-            nbytes = (2 * rgb.numel() * 4 + box_px * 4 + live.count * slots.table.shape[1] * 4
-                      + 4)
-            ops = frags * PHONG_FRAGMENT_OPS
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-            out = {"max_abs_err": 0.0, "ms": float(np.mean(ms["kernel"])),
-                   "plain_ms": float(np.mean(ms["crop"])),
-                   "bound_ms": max(t_bytes, t_ops) * 1e3,
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "library_ms": None}
+            nbytes = (24 * work["fragment_pixels"] + 4 * work["covered_pixels"]
+                      + live.count * slots.table.shape[1] * 4 + 4 * 8)
+            ops = work["fragments"] * PHONG_FRAGMENT_OPS
+            composite = {"max_abs_err": 0.0, "ms": float(np.mean(ms["kernel"])),
+                         "plain_ms": float(np.mean(ms["crop"])),
+                         **_bound(nbytes, ops, FP32_OPS_PER_S), "library_ms": None}
+            s_bytes, s_ops, s_count = _slot_bytes(tri, slots, cfg,
+                                                   scene.materials.alpha.shape[0])
+            table = {"max_abs_err": 0.0, "ms": float(np.mean(slot_ms["kernel"])),
+                     "plain_ms": float(np.mean(slot_ms["plain"])),
+                     **_bound(s_bytes, s_ops, FP32_OPS_PER_S), "library_ms": None}
             log(f"config4b blend composite t={t} on {smi} (in turns kernel, crop, whole "
                 "frame, whole frame, crop, kernel; the kernel's launch alone with a cold L2, "
                 "20 launches behind a device spin; the torch composites by CUDA events around "
@@ -1529,10 +1628,20 @@ def _blend_crop_check(dev, p, scene, smi: str) -> dict:
                 f"{ms['crop'][0]:.4f} / {ms['crop'][1]:.4f} ms, whole frame "
                 f"{ms['whole frame'][0]:.4f} / {ms['whole frame'][1]:.4f} ms; memory above its "
                 f"inputs: kernel {peaks['kernel']:.1f} MiB, crop {peaks['crop']:.1f} MiB; bound "
-                f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({nbytes} bytes: color in and out, "
-                f"the depth of {box_px} box pixels, {live.count} table rows; {frags} fragments "
-                f"x {PHONG_FRAGMENT_OPS} f32 operations)")
-    out["max_abs_err"] = err
+                f"{composite['bound_ms']:.5f} ms by {composite['bound_by']} ({nbytes} bytes: "
+                f"the color of {work['fragment_pixels']} pixels under a fragment read and "
+                f"written, the depth of {work['covered_pixels']} covered pixels, {live.count} "
+                f"table rows and the meta; {work['fragments']} fragments x "
+                f"{PHONG_FRAGMENT_OPS} f32 operations = {ops}); the boxes hold {box_px} pixels")
+            log(f"config4b slot table t={t} on {smi} (in turns kernel, plain, plain, kernel; "
+                "each with a cold L2, 20 calls behind a device spin): kernel "
+                f"{slot_ms['kernel'][0]:.4f} / {slot_ms['kernel'][1]:.4f} ms, plain "
+                f"(live_slots_plain) {slot_ms['plain'][0]:.4f} / {slot_ms['plain'][1]:.4f} ms; "
+                f"bound {table['bound_ms']:.6f} ms by {table['bound_by']} ({s_bytes} bytes: "
+                f"{s_count}; {s_ops} f32 operations)")
+            out = {"blend_composite": composite, "blend_slots": table}
+    out["blend_composite"]["max_abs_err"] = err
+    out["blend_slots"]["max_abs_err"] = slot_err
     return out
 
 
@@ -1835,6 +1944,7 @@ def phase_oracle(dev) -> dict:
         card, launches = _counted(lambda: r.readback(r.step(scene, cam)))
         want = {k: (per_frame if k == kernel else 0) for k in KERNELS}
         want["blend_composite"] = bands if p.config.blend else 0
+        want["blend_slots"] = int(p.config.blend)
         if launches != want:
             raise AssertionError(f"oracle {label}: launches {launches}, expected {want}")
         for k, v in launches.items():
@@ -2162,7 +2272,8 @@ def main() -> int:
     phase_gate_probe()
     kv.update(phase_gathers(dev, clock_hz))
     phase_golden(dev)
-    launches, kv["blend_composite"] = phase_main_path(dev, smi)
+    launches, kv_blend = phase_main_path(dev, smi)
+    kv.update(kv_blend)
     for k, v in phase_oracle(dev).items():
         launches[k] += v
     phase_present(dev)

@@ -324,6 +324,38 @@ def test_config4b_runs_only_its_live_chunks(monkeypatch, bands):
     _check_rule(got, rr.readback(rr.step(scene, cam)), scene, cam, p.config, stats=bands == 1)
 
 
+@pytest.mark.parametrize("bands", [1, 4])
+def test_blend_consumes_the_shaded_color(monkeypatch, bands):
+    """The composite writes the shade stage's color in place: on every
+    band the tensor it is given is the one it returns, and the panes
+    change it. The frame through Renderer (ShardedRenderer in 4 bands) on
+    the CPU still holds the reference renderer's under the shadow-flip
+    rule: nothing after the blend reads the color from before it."""
+    m = manifest("config4b")
+    p = ref_presets.small_preset(ref_presets.config4_blend(), m["width"], m["height"],
+                                 **m["overrides"], num_shards=bands)
+    cam, mm = p.animate(3.0, np)
+    scene = p.scene.replace(model_matrices=mm)
+    calls = []
+    composite = blend.composite_transparent
+
+    def spy(color, *args, **kw):
+        before = color.clone()
+        out, overflow = composite(color, *args, **kw)
+        calls.append((out is color, not torch.equal(color, before)))
+        return out, overflow
+
+    monkeypatch.setattr(blend, "composite_transparent", spy)
+    st = convert.scene_to_torch(scene, "cpu")
+    cfg = convert.config_from(p.config)
+    r = Renderer(st, cfg, "cpu") if bands == 1 else ShardedRenderer(st, cfg, devices=["cpu"])
+    got = r.readback(r.step(st, cam))
+    assert len(calls) == bands and all(same for same, _ in calls)
+    assert any(changed for _, changed in calls)
+    rr = RefRenderer(scene, p.config)  # which ignores num_shards
+    _check_rule(got, rr.readback(rr.step(scene, cam)), scene, cam, p.config, stats=bands == 1)
+
+
 def test_culled_transparent_triangles_run_no_chunk(monkeypatch):
     """The textured pane moved behind the eye: geometry drops it, so no
     record is live and no chunk runs."""
@@ -468,7 +500,8 @@ def test_cropped_composite_is_the_whole_frame_composite(monkeypatch, case):
                                            **shadow)
         shapes = []
         calls = _count_chunks(monkeypatch, shapes)
-        got = blend.composite_transparent(rgb, depth, tri, scene, band_cfg, c.eye, y_offset=yo,
+        got = blend.composite_transparent(rgb.clone(), depth, tri, scene, band_cfg, c.eye,
+                                          y_offset=yo,
                                           live=slots if bands > 1 else None, **shadow)
         monkeypatch.undo()
         assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), b

@@ -1,12 +1,21 @@
 """The blend stage as the card captures it (xr_torch/shading/blend.py), on
-the CPU, where the kernel (csrc/blend.cu) stands as its plain version:
-- the live slots the card keeps on the device (blend.live_slots: the live
-  count, the source-ordered ids, each live chunk's screen box, each slot's
-  box and record in the slot table) against the host values, computed here
-  in numpy from the records and with the reference's _src_ordered_ids:
-  config4b at golden size at chip_smoke.py's BLEND_CROP_TIMES, and the
-  scenes of tests/test_torch_blend.py (FAR_PANES, CROP_CASES); the plain
-  version's host read (live_records) holds the same values;
+the CPU, where the kernels (csrc/blend.cu) stand as their plain versions:
+- the live slots the card keeps on the device (blend.live_slots: the meta
+  vector with the live count, the transparent total, the overflow and the
+  union of the live boxes cut to the frame, the source-ordered ids, each
+  live chunk's screen box, each slot's box and record in the slot table)
+  against the host values, computed here in numpy from the records and
+  with the reference's _src_ordered_ids: config4b at golden size at
+  chip_smoke.py's BLEND_CROP_TIMES, and the scenes of
+  tests/test_torch_blend.py (FAR_PANES, CROP_CASES); the plain version's
+  host read (live_records) holds the same values;
+- totals above the capacity (every material transparent) and a frame
+  whose transparent records are all culled (count 0) through the plain
+  paths of live_slots and composite_transparent: the meta vector's host
+  values, the whole-frame composite bit for bit, the overflow, and no
+  pixel written at count 0;
+- both kernels' names map to their own launch counts, and both wrappers
+  refuse CPU tensors;
 - the slot table's layout is the one csrc/blend.cu reads;
 - blend_composite_plain (from the slot table, cropped to the live boxes)
   against composite_transparent and the whole-frame composite from the
@@ -34,7 +43,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_blend import CROP_CASES, FAR_PANES, _config4b, _panes
-from test_torch_cuda import BLEND_MODES, blend_inputs, blend_modes_preset, same_f32
+from test_torch_cuda import (BLEND_MODES, _blend_slot_scene, blend_inputs, blend_modes_preset,
+                             same_f32)
 
 from xr.core import math3d as rm3
 from xr.core import types as rtypes
@@ -119,10 +129,60 @@ def test_live_slots_on_the_device_equal_the_host_values(case):
                                        _first_center(xs.min(), sub),
                                        _first_center(xs.max() + 1, sub)], j
     assert torch.equal(rec.z[:count], tri.z[torch.from_numpy(live).long()])
+    assert slots.meta.tolist() == _host_meta(t, tmask, cfg)
     # the plain version's host read: the same count, ids and live boxes
     host = blend.live_records(tri, scene, cfg, slots)
     assert host.count == count and host.boxes == live_boxes and host.ids is slots.ids
     assert blend.live_records(tri, scene, cfg, slots) is host  # read once
+
+
+def _host_meta(t, tmask, cfg):
+    """The meta vector in numpy from the records t (xs, ys, src_id) and the
+    transparent mask: count, total, overflow, 0, and the union of the live
+    chunks' boxes cut to the frame."""
+    bc, ch = cfg.blend_capacity, min(cfg.blend_chunk, cfg.blend_capacity)
+    nchunks, sub = -(-bc // ch), cfg.subpixel
+    ids, total = rblend._src_ordered_ids(types.SimpleNamespace(src_id=t["src_id"]), tmask,
+                                         nchunks * ch, np)
+    count, far = min(int(total), bc), 2**30
+    live = ids[:count]
+    ys, xs = t["ys"][live], t["xs"][live]
+    union = (_first_center(ys.min() if count else far, sub),
+             _first_center(ys.max() + 1 if count else 1 - far, sub),
+             _first_center(xs.min() if count else far, sub),
+             _first_center(xs.max() + 1 if count else 1 - far, sub))
+    H, W = cfg.height, cfg.width
+    return [count, int(total), max(int(total) - bc, 0), 0, min(max(union[0], 0), H),
+            min(max(union[1], 0), H), min(max(union[2], 0), W), min(max(union[3], 0), W)]
+
+
+@pytest.mark.parametrize("case", ["all_transparent-32", "all_transparent-1", "culled"])
+def test_overflow_and_count_zero_through_the_plain_paths(case):
+    """live_slots and composite_transparent on the CPU (the plain versions)
+    where the total passes the capacity and where every transparent record
+    is culled: the meta vector's host values; the composite, in place,
+    equal to the whole-frame composite bit for bit with the same overflow;
+    at count 0 not one pixel written."""
+    p, t, over = _blend_slot_scene(case)
+    p = p._replace(config=dataclasses.replace(p.config, **over))
+    cfg = p.config
+    tri, scene, eye, shadow, ((rgb, depth, _, _),) = blend_inputs(p, "cpu", t=t)
+    slots = blend.live_slots(tri, scene, cfg)
+    host = {k: getattr(tri, k).numpy() for k in ("xs", "ys", "src_id")}
+    tmask = blend.transparent_mask(tri, scene).numpy()
+    meta = _host_meta(host, tmask, cfg)
+    assert slots.meta.tolist() == meta
+    if case == "culled":
+        assert meta[:3] == [0, 0, 0]
+    else:
+        assert meta[1] > cfg.blend_capacity and meta[0] == cfg.blend_capacity
+    color = rgb.clone()
+    got, overflow = blend.composite_transparent(color, depth, tri, scene, cfg, eye, **shadow)
+    whole, whole_overflow = blend.composite_whole_frame(rgb, depth, tri, scene, cfg, eye,
+                                                        **shadow)
+    assert got is color and same_f32(got, whole)
+    assert int(overflow) == int(whole_overflow) == meta[2]
+    assert same_f32(got, rgb) == (case == "culled")
 
 
 def test_slot_table_layout_is_the_kernels():
@@ -158,9 +218,9 @@ def test_plain_is_the_composite(mode, textures):
         tri, scene, eye, shadow, per_band = blend_inputs(p, "cpu", bands=bands)
         slots = blend.live_slots(tri, scene, p.config)
         for rgb, depth, yo, cfg in per_band:
-            got = blend.blend_composite_plain(rgb, depth, tri, scene, cfg, eye, y_offset=yo,
-                                              live=slots, **shadow)
-            via, overflow = blend.composite_transparent(rgb, depth, tri, scene, cfg, eye,
+            got = blend.blend_composite_plain(rgb.clone(), depth, tri, scene, cfg, eye,
+                                              y_offset=yo, live=slots, **shadow)
+            via, overflow = blend.composite_transparent(rgb.clone(), depth, tri, scene, cfg, eye,
                                                         y_offset=yo, **shadow)
             whole, _ = blend.composite_whole_frame(rgb, depth, tri, scene, cfg, eye, y_offset=yo,
                                                    **shadow)
@@ -222,13 +282,44 @@ def test_blend_kernel_names_map_to_its_launch_count():
     assert kernels.CSRC / "blend.cu" in kernels.SOURCES
 
 
+def test_slot_kernel_name_maps_to_its_launch_count():
+    """The slot-table kernel counts under blend_slots (graph_launches reads
+    it in replays), by words that no other kernel's name holds."""
+    names = {"void xrb::slot_table_kernel(xrb::SlotArgs)": "blend_slots",
+             "_ZN3xrb17slot_table_kernelENS_8SlotArgsE": "blend_slots"}
+    assert {n: kernels.launch_name(n) for n in names} == names
+    assert "blend_slots" in kernels.launches
+    src = (kernels.CSRC / "blend.cu").read_text()
+    kernel_names = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\) )?(\w+)\(", src)
+    assert sorted(kernel_names) == ["blend_composite_kernel", "slot_table_kernel"]
+    for other, words in kernels.KERNEL_NAMES.items():
+        if other != "blend_slots":
+            assert not all(w in "slot_table_kernel" for w in words), other
+    assert not all(w in "blend_composite_kernel" for w in kernels.KERNEL_NAMES["blend_slots"])
+
+
+def test_slot_kernel_refuses_cpu_tensors():
+    """The slot-table wrapper launches on CUDA tensors or raises: no
+    fallback; live_slots on CPU records runs the plain version."""
+    p = blend_modes_preset(MODE_PHONG, "ragged")
+    tri, scene, _, _, _ = blend_inputs(p, "cpu")
+    call = blend.slots_call(tri, scene, p.config)
+    assert call.keywords["uv_slot"] == 6 and call.args[2] is scene.textures.base_size_per_tex
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
+    kernels.reset_launches()
+    slots = blend.live_slots(tri, scene, p.config)
+    assert not any(kernels.launches.values())
+    assert same_f32(slots.table, blend.live_slots_plain(tri, scene, p.config).table)
+
+
 def test_blend_kernel_refuses_cpu_tensors():
     """The wrapper launches on CUDA tensors or raises: no fallback."""
     p = blend_modes_preset(MODE_PHONG)
     tri, scene, eye, shadow, ((rgb, depth, yo, cfg),) = blend_inputs(p, "cpu")
     slots = blend.live_slots(tri, scene, cfg)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.blend_composite(rgb, depth, slots.table, slots.count,
+        kernels.blend_composite(rgb, depth, slots.table, slots.meta,
                                 torch.zeros(6 + 6 * 4 + 16), shadow["shadow_depth"], None,
                                 None, None, mode=cfg.mode, attr_width=cfg.attr_width,
                                 y_offset=0, subpixel=cfg.subpixel, n_dir=2, n_point=2,
@@ -241,7 +332,7 @@ def _emulated_kernel(calls):
     (the slot table, the constants vector, the texture tables as a ragged
     pyramid): every live slot over the whole frame (band), in order."""
 
-    def emulate(color, depth, table, count, consts, shadow, quads, level_size, level_base, *,
+    def emulate(color, depth, table, meta, consts, shadow, quads, level_size, level_base, *,
                 mode, attr_width, y_offset, subpixel, n_dir, n_point, bias, levels):
         calls.append({"mode": mode, "attr_width": attr_width, "subpixel": subpixel,
                       "bias": bias, "levels": levels})
@@ -261,7 +352,7 @@ def _emulated_kernel(calls):
         H, W = depth.shape
         px = torch.arange(W, dtype=torch.int32) * subpixel + subpixel // 2
         py = (torch.arange(H, dtype=torch.int32) + y_offset) * subpixel + subpixel // 2
-        rec = blend.unpack_slots(table[: int(count)], attr_width)
+        rec = blend.unpack_slots(table[: int(meta[0])], attr_width)
         return blend._composite_slots(color, depth, rec, scene, cfg, eye, px, py, shadow, lvp)
 
     return emulate
@@ -281,7 +372,7 @@ def test_kernel_inputs_hold_the_composite(monkeypatch, mode, textures):
     tri, scene, eye, shadow, per_band = blend_inputs(p, "cpu", bands=2)
     slots = blend.live_slots(tri, scene, p.config)
     for rgb, depth, yo, cfg in per_band:
-        got = blend._launch(rgb, depth, slots, scene, cfg, eye, shadow.get("shadow_depth"),
+        got = blend._launch(rgb.clone(), depth, slots, scene, cfg, eye, shadow.get("shadow_depth"),
                             shadow.get("light_viewproj"), yo)
         want = blend.blend_composite_plain(rgb, depth, tri, scene, cfg, eye, y_offset=yo,
                                            live=slots, **shadow)

@@ -16,10 +16,14 @@ the CPU's, and the app layer on the card (debug_checks with a NaN vertex,
 a shade_hook reading frag.depth, recycle_framebuffers=False), both
 kernels on screen bands (y_offset != 0, records above the band's first
 row) and banded frames on the card equal to the unbanded ones, and the
-blend kernel against its plain version and the whole-frame composite
-bit for bit in f32 in each mode (config4b's panes, flat, Gouraud, textured
-and Phong, a uniform and a ragged pyramid, one map clamped), unbanded and
-in four bands, the
+blend kernel, in place, against its plain version and the whole-frame
+composite bit for bit in f32 in each mode (config4b's panes, flat,
+Gouraud, textured and Phong, a uniform and a ragged pyramid, one map
+clamped), unbanded and in four bands, the pixels no fragment lands on
+keeping their bits, the slot-table kernel against live_slots_plain bit for
+bit (config4b's benchmark times, the mode cases, totals above the capacity,
+a frame with every transparent record culled), both blend kernels built
+without a spill, the
 setup records of config5 and config7 at 1920x1080 on the card equal to
 the CPU's bit for bit (the frame's camera matrices are the host's on
 every device: CUDA's tan is not the CPU's), and the stream kernel under
@@ -42,6 +46,7 @@ import torch
 from xr_torch import Renderer, convert, kernels
 from xr_torch.app import renderer
 from xr_torch.app.renderer import has_shadow_pass, shadow_config
+from xr_torch.core import fixedpoint as fp
 from xr_torch.core import math3d as m3
 from xr_torch.core import types
 from xr_torch.core.types import MODE_FLAT, MODE_GOURAUD, MODE_PHONG, MODE_TEXTURED
@@ -230,7 +235,8 @@ def test_cuda_frame_equals_cpu_frame(cuda, name):
     b1 = "vis_stream_zgate" if stream.gated(p.config) else "vis_stream"  # config7: z_earlyout
     assert kernels.launches[b1] == (2 if name.startswith("config4") else int(name != "config1"))
     assert kernels.launches["blend_composite"] == int(name == "config4b")
-    assert sum(kernels.launches.values()) == kernels.launches[b1] + int(name == "config4b")
+    assert kernels.launches["blend_slots"] == int(name == "config4b")
+    assert sum(kernels.launches.values()) == kernels.launches[b1] + 2 * int(name == "config4b")
     cpu = convert.scene_to_torch(p.scene.replace(model_matrices=p.animate(1.7)[1]), "cpu")
     rh = Renderer(cpu, p.config, "cpu")
     fh = rh.readback(rh.step(cpu, cam))
@@ -513,8 +519,10 @@ def test_banded_frame_on_the_card_equals_unbanded(cuda, name):
     b1 = "vis_stream_zgate" if stream.gated(p.config) else "vis_stream"  # config5: z_earlyout
     assert kernels.launches[b1] == 4 + (name == "config4b")
     assert kernels.launches["blend_composite"] == (4 if name == "config4b" else 0)
+    assert kernels.launches["blend_slots"] == (1 if name == "config4b" else 0)
     assert sum(kernels.launches.values()) == (kernels.launches[b1]
-                                              + kernels.launches["blend_composite"])
+                                              + kernels.launches["blend_composite"]
+                                              + kernels.launches["blend_slots"])
     r = Renderer(scene, p.config, cuda)
     single = r.readback(r.step(scene, cam))
     assert banded.color.tobytes() == single.color.tobytes()
@@ -772,7 +780,7 @@ def test_graphed_frame_equals_render_step(cuda, case):
         assert n_got == n_want
     eager = [s.name for s in r._captured.program.segments if s.graph is None]
     assert eager == []
-    assert n_got["blend_composite"] == int(p.config.blend)
+    assert n_got["blend_composite"] == n_got["blend_slots"] == int(p.config.blend)
     if r._light is not None:  # the light_matrices= override reaches the shadow pass
         lv, lp = r._light
         lv = np.array(lv, np.float32)
@@ -910,7 +918,9 @@ def test_graphed_banded_frame_equals_render_step_sharded(cuda, case):
         b = max(n_got, key=n_got.get)
         blends = n_got["blend_composite"]
         assert blends == (n if p.config.blend else 0)
-        assert n_got[b] == n + has_shadow_pass(p.config) == sum(n_got.values()) - blends
+        assert n_got["blend_slots"] == int(p.config.blend)  # once a device
+        assert n_got[b] == n + has_shadow_pass(p.config) == (sum(n_got.values()) - blends
+                                                             - n_got["blend_slots"])
         single = r.step(scene, cam)
         assert torch.equal(got.color, single.color)
         assert torch.equal(got.depth.view(torch.int32), single.depth.view(torch.int32))
@@ -1034,10 +1044,11 @@ def same_f32(a, b) -> bool:
 @pytest.mark.parametrize("mode", sorted(BLEND_MODES))
 def test_blend_kernel_matches_plain(cuda, mode, textures):
     """The blend kernel (composite_transparent on the card, one launch a
-    call) against its plain version (blend_composite_plain on the card's
-    tensors) and the whole-frame composite from the records, bit for bit
-    in f32, unbanded and in each of four bands (a band the panes miss
-    included)."""
+    call, in place) against its plain version (blend_composite_plain on
+    the card's tensors) and the whole-frame composite from the records,
+    bit for bit in f32, unbanded and in each of four bands (a band the
+    panes miss included); every pixel no fragment lands on keeps its
+    input's bits."""
     p = blend_modes_preset(BLEND_MODES[mode], textures)
     changed = 0
     for bands in (1, 4):
@@ -1045,16 +1056,125 @@ def test_blend_kernel_matches_plain(cuda, mode, textures):
         slots = blend.live_slots(tri, scene, p.config)
         for rgb, depth, yo, cfg in per_band:
             kernels.reset_launches()
-            got, overflow = blend.composite_transparent(rgb, depth, tri, scene, cfg, eye,
+            color = rgb.clone()
+            got, overflow = blend.composite_transparent(color, depth, tri, scene, cfg, eye,
                                                         y_offset=yo, live=slots, **shadow)
             torch.cuda.synchronize()
-            assert kernels.launches["blend_composite"] == 1
-            plain = blend.blend_composite_plain(rgb, depth, tri, scene, cfg, eye, y_offset=yo,
-                                                live=slots, **shadow)
+            assert kernels.launches["blend_composite"] == 1 and got is color
+            plain = blend.blend_composite_plain(rgb.clone(), depth, tri, scene, cfg, eye,
+                                                y_offset=yo, live=slots, **shadow)
             whole, _ = blend.composite_whole_frame(rgb, depth, tri, scene, cfg, eye,
                                                    y_offset=yo, **shadow)
             assert same_f32(got, plain), (bands, yo)
             assert same_f32(got, whole), (bands, yo)
             assert int(overflow) == 0
+            kept = ~(fragment_pixels(slots, depth, cfg, yo))
+            assert torch.equal(got.view(torch.int32)[kept], rgb.view(torch.int32)[kept])
             changed += int((got != rgb).any(-1).sum())
     assert changed > 100
+
+
+def fragment_pixels(slots, depth, cfg, y_offset=0):
+    """(H, W) bool: the pixels of depth's rows (from y_offset) that a live
+    slot's fragment lands on (blend.fragment_mask)."""
+    live = blend.live_records(None, None, cfg, slots)
+    H, W = depth.shape
+    px = fp.pixel_center_fixed(torch.arange(W, device=depth.device), cfg.subpixel)
+    py = fp.pixel_center_fixed(torch.arange(y_offset, y_offset + H, device=depth.device),
+                               cfg.subpixel)
+    rec = blend.unpack_slots(live.table[: live.count], cfg.attr_width)
+    return blend.fragment_mask(rec, px, py, depth)[0].any(0)
+
+
+def _blend_slot_scene(case):
+    """(preset, t, config overrides) of a slot-table case: config4b at
+    golden size at a t of the benchmark cell's range, every material
+    transparent (totals far above the capacity), or the panes collapsed to
+    a point (every transparent record culled)."""
+    p = presets.small_preset(presets.config4_blend(), 160, 100, bin_capacity=8192,
+                             shadow_map_size=128)
+    kind, _, arg = case.partition("-")
+    if kind == "config4b":
+        return p, float(arg), {}
+    if kind == "all_transparent":
+        m = p.scene.materials
+        mats = m.replace(alpha=np.full_like(m.alpha, 0.5))
+        return p._replace(scene=p.scene.replace(materials=mats)), 0.3, {"blend_capacity": int(arg)}
+    assert kind == "culled"
+    pos = p.scene.mesh.positions.copy()
+    pos[-8:] = pos[0]  # the two panes' eight vertices (merged last)
+    return p._replace(scene=p.scene.replace(mesh=p.scene.mesh.replace(positions=pos))), 0.3, {}
+
+
+BLEND_SLOT_CASES = ([f"config4b-{t}" for t in (0.05, 3.0, 6.05, 9.0, 16.0)]
+                    + ["all_transparent-32", "all_transparent-300", "all_transparent-1",
+                       "culled"])
+
+
+def _same_slots(got, want, label):
+    """The slot-table kernel's SlotTable against its plain version's: the
+    meta vector, ids and table rows up to the live count, the chunk boxes."""
+    n = int(want.count)
+    assert torch.equal(got.meta, want.meta), (label, got.meta.tolist(), want.meta.tolist())
+    assert torch.equal(got.ids[:n], want.ids[:n]), label
+    assert torch.equal(got.boxes, want.boxes), label
+    assert same_f32(got.table[:n], want.table[:n]), label
+
+
+@pytest.mark.parametrize("case", BLEND_SLOT_CASES)
+def test_blend_slots_kernel_matches_plain(cuda, case):
+    """The slot-table kernel (live_slots on the card, one launch) against
+    its plain version (live_slots_plain on the card's records), bit for
+    bit: config4b's frames at the benchmark cell's t, totals above the
+    capacity (every material transparent), and a frame whose transparent
+    records are all culled (count 0: the composite writes nothing)."""
+    p, t, over = _blend_slot_scene(case)
+    cfg = dataclasses.replace(p.config, **over)
+    cam, mm = p.animate(t)
+    scene = convert.scene_to_torch(p.scene.replace(model_matrices=mm), cuda)
+    c, view, proj = renderer.camera_matrices(scene, cam, cfg)
+    cap = clip_capacity(scene.mesh.num_triangles, cfg)
+    tri, vis_tri = renderer.visible_triangles(scene, view, proj, cfg, cap)
+    kernels.reset_launches()
+    got = blend.live_slots(tri, scene, cfg)
+    torch.cuda.synchronize()
+    assert kernels.launches["blend_slots"] == sum(kernels.launches.values()) == 1
+    want = blend.live_slots_plain(tri, scene, cfg)
+    _same_slots(got, want, case)
+    total = int(blend.transparent_mask(tri, scene).sum())
+    assert int(got.total) == total and int(got.overflow) == max(total - cfg.blend_capacity, 0)
+    if case.startswith("all_transparent"):
+        assert total > cfg.blend_capacity
+    if case == "culled":
+        assert total == 0 and int(got.count) == 0
+        tid, zbuf, _ = dispatch.visibility(vis_tri, cfg, cap)
+        depth = torch.where(torch.isinf(zbuf), 1.0, zbuf)
+        rgb = renderer.shade(tri, tid, scene, cfg, c.eye, {}, None, depth)
+        color = rgb.clone()
+        out, overflow = blend.composite_transparent(color, depth, tri, scene, cfg, c.eye,
+                                                    live=got)
+        assert out is color and same_f32(out, rgb) and int(overflow) == 0
+
+
+@pytest.mark.parametrize("textures", ["uniform", "ragged"])
+@pytest.mark.parametrize("mode", sorted(BLEND_MODES))
+def test_blend_slots_kernel_matches_plain_in_each_mode(cuda, mode, textures):
+    """The slot-table kernel against its plain version in the card tests'
+    eight mode cases (the LOD terms and texture fields of each pyramid)."""
+    p = blend_modes_preset(BLEND_MODES[mode], textures)
+    tri, scene, _, _, _ = blend_inputs(p, cuda)
+    _same_slots(blend.live_slots(tri, scene, p.config),
+                blend.live_slots_plain(tri, scene, p.config), (mode, textures))
+
+
+def test_blend_kernels_build_without_spills(cuda, tmp_path):
+    """ptxas's report of csrc/blend.cu: both blend kernels, no spill."""
+    import subprocess
+
+    out = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                          str(tmp_path / "blend.o"), str(kernels.CSRC / "blend.cu")],
+                         capture_output=True, text=True, check=True)
+    log = out.stdout + out.stderr
+    for key in ("blend_composite", "blend_slots"):
+        usage = kernels.ptxas_usage(log, key)
+        assert usage is not None and usage["spill_bytes"] == 0, (key, usage)

@@ -236,7 +236,7 @@ def test_band_shading_with_y_offset(name):
     assert live > 0 and torch.equal(tid[:live], ftid[rows])
     assert torch.equal(rgb[:live], full[rows])
     if cfg.blend:
-        got, of = composite_transparent(rgb, depth, tri, scene, band_cfg, eye, y_offset=yo,
+        got, of = composite_transparent(rgb.clone(), depth, tri, scene, band_cfg, eye, y_offset=yo,
                                         **shadow)
         ref_rgb, ref_of = ref_composite(want, depth.numpy(), rtri, rscene, rband, cam.eye,
                                         xp=np, y_offset=yo, **np_shadow)

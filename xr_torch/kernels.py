@@ -7,8 +7,10 @@ Kernels (one launch wrapper each):
   lane_gather   csrc/gather.cu      out[s, j] = tab[s, idx[j]]
   quad_gather   csrc/gather.cu      out[n] = sum_s tab[s, idx[n]] (u32, wrapping)
   quad_gather1  csrc/gather.cu      out[n] = tab[0, idx[n]]
-  blend_composite csrc/blend.cu     the transparent slots composited over a
-                                    frame or band (shading/blend.py)
+  blend_slots   csrc/blend.cu       the live transparent slot table, built on
+                                    the device in one block (shading/blend.py)
+  blend_composite csrc/blend.cu     the live slots composited in place over a
+                                    frame or band, on the tiles they meet
 The two visibility kernels share their record fold (csrc/fold_records.cuh):
 a launch is a small clear kernel followed by the fold kernel over the work
 items the prep lists, counted as one launch. The gathers carry the
@@ -37,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -56,7 +59,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 TILE_W = 128  # tile width the visibility kernels take (csrc/fold_records.cuh)
 
 launches = {"vis_stream": 0, "vis_stream_zgate": 0, "vis_lists": 0, "lane_gather": 0,
-            "quad_gather": 0, "quad_gather1": 0, "blend_composite": 0}
+            "quad_gather": 0, "quad_gather1": 0, "blend_composite": 0, "blend_slots": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -69,12 +72,13 @@ def reset_launches() -> None:
 
 
 # the fold kernel of each visibility launch (the clear kernel before it is
-# not counted) and the blend kernel, by the words of its name, gated first:
+# not counted) and the blend kernels, by the words of its name, gated first:
 # the gated kernel's name holds the ungated one's
 KERNEL_NAMES = {"vis_stream_zgate": ("zgate_fold_kernel", "StreamWalk"),
                 "vis_stream": ("fold_kernel", "StreamWalk"),
                 "vis_lists": ("fold_kernel", "ListWalk"),
-                "blend_composite": ("blend_composite_kernel",)}
+                "blend_composite": ("blend_composite_kernel",),
+                "blend_slots": ("slot_table_kernel",)}
 
 
 def launch_name(kernel: str):
@@ -211,6 +215,18 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
+def ptxas_usage(log: str, key: str):
+    """ptxas's registers and bytes of spill stores ({"registers",
+    "spill_bytes"}) of the first kernel of a verbose build's log whose
+    mangled name holds the words of KERNEL_NAMES[key]; None if the log
+    reports none."""
+    for m in re.finditer(r"Function properties for (\S+)\n.*?(\d+) bytes spill stores.*?\n"
+                         r".*?Used (\d+) registers", log):
+        if all(w in m.group(1) for w in KERNEL_NAMES[key]):
+            return {"registers": int(m.group(3)), "spill_bytes": int(m.group(2))}
+    return None
+
+
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
     global _lib
@@ -233,8 +249,10 @@ def library() -> ctypes.CDLL:
             for fn in (lib.xr_lane_gather, lib.xr_quad_gather, lib.xr_quad_gather1,
                        lib.xr_lane_gather_scratch, lib.xr_quad_gather_scratch):
                 fn.restype = i
-            lib.xr_blend_composite.argtypes = [p] * 10 + [i] * 14 + [ctypes.c_float, p]
+            lib.xr_blend_composite.argtypes = [p] * 9 + [i] * 14 + [ctypes.c_float, p]
             lib.xr_blend_composite.restype = i
+            lib.xr_blend_slots.argtypes = [p] * 22 + [i] * 9 + [ctypes.c_float, p]
+            lib.xr_blend_slots.restype = i
             lib.xr_cuda_error_string.argtypes = [i]
             lib.xr_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -460,28 +478,97 @@ def quad_gather1(idx, tab):
     return out
 
 
-def blend_composite(color, depth, table, count, consts, shadow, quads, level_size, level_base,
+META = 8  # the slot table's meta vector: count, total, overflow, 0, union y0 y1 x0 x1
+SLOT_COLUMNS = 37  # the slot table's columns before the attributes (shading/blend.py FIELDS)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def blend_slots(tri, mats, tex_size, *, tex_base, uv_slot, subpixel, cap, chunk, height,
+                width):
+    """Launch the slot-table kernel (csrc/blend.cu) on the current stream:
+    the first `cap` transparent records (valid, material alpha < 1) in
+    source order, as the composite reads them. Returns (meta (8,) i32: the
+    live count min(total, cap), the transparent total, the overflow
+    max(total - cap, 0), 0, and the union (y0, y1, x0, x1) of the live
+    chunks' boxes cut to the height x width frame; ids (nchunks * chunk,)
+    i64, the record ids in source order; boxes (nchunks, 4) i32, each
+    chunk's box over its live slots; table (cap, 37 + 3 * A) f32, one row
+    a slot in shading/blend.py's FIELDS layout). ids and table are written
+    up to the live count only.
+
+    tri: setup records, xs and ys (C, 3) i32, z, inv_w and face_rgb (C, 3)
+    f32, attr_w (C, 3, A) f32, mat_id and src_id (C,) i32, valid (C,)
+    bool; mats: materials, alpha, ka, kd, ks, shininess (M,) f32,
+    base_color (M, 3) f32, tex_id (M,) i32, tex_addr (M,) i32 or None;
+    tex_size (ntex,) i32, a ragged pyramid's base size per texture, or
+    None (then tex_base, a float, is every slot's); uv_slot: the attribute
+    of u where the mode samples a texture, else -1 -- all on one CUDA
+    device. nchunks = ceil(cap / chunk)."""
+    dev = tri.xs.device
+    C = tri.xs.shape[0]
+    A = tri.attr_w.shape[-1]
+    for n in ("xs", "ys"):
+        _check(n, getattr(tri, n), torch.int32, (C, 3), dev)
+    for n in ("z", "inv_w", "face_rgb"):
+        _check(n, getattr(tri, n), torch.float32, (C, 3), dev)
+    _check("attr_w", tri.attr_w, torch.float32, (C, 3, A), dev)
+    for n in ("mat_id", "src_id"):
+        _check(n, getattr(tri, n), torch.int32, (C,), dev)
+    _check("valid", tri.valid, torch.bool, (C,), dev)
+    M = mats.alpha.shape[0]
+    for n in ("alpha", "ka", "kd", "ks", "shininess"):
+        _check(n, getattr(mats, n), torch.float32, (M,), dev)
+    _check("base_color", mats.base_color, torch.float32, (M, 3), dev)
+    _check("tex_id", mats.tex_id, torch.int32, (M,), dev)
+    if mats.tex_addr is not None:
+        _check("tex_addr", mats.tex_addr, torch.int32, (M,), dev)
+    if tex_size is not None:
+        _check("tex_size", tex_size, torch.int32, None, dev)
+    if cap < 1 or chunk < 1:
+        raise ValueError(f"blend_slots: capacity {cap} and chunk {chunk} must be positive")
+    nchunks = -(-cap // chunk)
+    meta = torch.empty((META,), dtype=torch.int32, device=dev)
+    ids = torch.empty((nchunks * chunk,), dtype=torch.int64, device=dev)
+    boxes = torch.empty((nchunks, 4), dtype=torch.int32, device=dev)
+    table = torch.empty((cap, SLOT_COLUMNS + 3 * A), dtype=torch.float32, device=dev)
+    _launch("blend_slots", library().xr_blend_slots,
+            tri.xs.data_ptr(), tri.ys.data_ptr(), tri.z.data_ptr(), tri.inv_w.data_ptr(),
+            tri.face_rgb.data_ptr(), tri.attr_w.data_ptr(), tri.mat_id.data_ptr(),
+            tri.src_id.data_ptr(), tri.valid.data_ptr(), mats.alpha.data_ptr(),
+            mats.base_color.data_ptr(), mats.ka.data_ptr(), mats.kd.data_ptr(),
+            mats.ks.data_ptr(), mats.shininess.data_ptr(), mats.tex_id.data_ptr(),
+            _ptr(mats.tex_addr), _ptr(tex_size), ids.data_ptr(), boxes.data_ptr(),
+            table.data_ptr(), meta.data_ptr(), C, M, A, uv_slot, subpixel, cap, chunk, height,
+            width, float(tex_base), torch.cuda.current_stream(dev).cuda_stream)
+    return meta, ids, boxes, table
+
+
+def blend_composite(color, depth, table, meta, consts, shadow, quads, level_size, level_base,
                     *, mode, attr_width, y_offset, subpixel, n_dir, n_point, bias, levels):
     """Launch the blend composite (csrc/blend.cu) on the current stream:
     the live slots of the slot table composited over color in source
-    order. Returns a new (H, W, 3) f32 color.
+    order, in place, on the tiles of the live boxes' union only. Returns
+    color: consumed, its pixels under a fragment written, every other one
+    as it was.
 
     color (H, W, 3) f32 and depth (H, W) f32: rows [y_offset, y_offset + H)
     of the frame; table (cap, 37 + 3 * attr_width) f32 (shading/blend.py
-    FIELDS); count () or (1,) i32, the live slots; consts f32: eye (3),
-    ambient (3), the n_dir directional lights' directions then colors, the
-    n_point point lights' positions then colors (3 each), and with a shadow
-    map the light's view-projection (16); shadow (Hs, Ws) f32 or None;
-    quads (rows, 13) i32, level_size and level_base (ntex * levels) i32, or
-    None with levels 0 — all on one CUDA device."""
+    FIELDS); meta (8,) i32, blend_slots' (the live count and the union box
+    are read on the device); consts f32: eye (3), ambient (3), the n_dir
+    directional lights' directions then colors, the n_point point lights'
+    positions then colors (3 each), and with a shadow map the light's
+    view-projection (16); shadow (Hs, Ws) f32 or None; quads (rows, 13)
+    i32, level_size and level_base (ntex * levels) i32, or None with levels
+    0 -- all on one CUDA device."""
     dev = color.device
     H, W = depth.shape
     _check("color", color, torch.float32, (H, W, 3), dev)
     _check("depth", depth, torch.float32, (H, W), dev)
-    _check("table", table, torch.float32, (table.shape[0], 37 + 3 * attr_width), dev)
-    _check("count", count, torch.int32, None, dev)
-    if count.numel() != 1:
-        raise ValueError("count: one int")
+    _check("table", table, torch.float32, (table.shape[0], SLOT_COLUMNS + 3 * attr_width), dev)
+    _check("meta", meta, torch.int32, (META,), dev)
     lights = 6 + 6 * (n_dir + n_point) + (16 if shadow is not None else 0)
     _check("consts", consts, torch.float32, (lights,), dev)
     hs = ws = 0
@@ -495,16 +582,10 @@ def blend_composite(color, depth, table, count, consts, shadow, quads, level_siz
         ntex = level_size.shape[0] // levels
         for n, t in (("level_size", level_size), ("level_base", level_base)):
             _check(n, t, torch.int32, (ntex * levels,), dev)
-    lib = library()
-    out = torch.empty_like(color)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    _launch("blend_composite", lib.xr_blend_composite,
-            table.data_ptr(), count.data_ptr(), consts.data_ptr(), color.data_ptr(),
-            depth.data_ptr(), out.data_ptr(), ptr(shadow), ptr(quads), ptr(level_size),
-            ptr(level_base), H, W, y_offset, subpixel, mode, attr_width, table.shape[1],
-            table.shape[0], n_dir, n_point, hs, ws, 0 if quads is None else quads.shape[1],
-            levels, bias, torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    _launch("blend_composite", library().xr_blend_composite,
+            table.data_ptr(), meta.data_ptr(), consts.data_ptr(), color.data_ptr(),
+            depth.data_ptr(), _ptr(shadow), _ptr(quads), _ptr(level_size), _ptr(level_base),
+            H, W, y_offset, subpixel, mode, attr_width, table.shape[1], table.shape[0], n_dir,
+            n_point, hs, ws, 0 if quads is None else quads.shape[1], levels, bias,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return color

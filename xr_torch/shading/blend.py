@@ -13,25 +13,28 @@ The reference runs the composite as a ``lax.scan`` over chunks of
 with ``lax.cond`` on ``ok.any()``: nothing is read to the host. The live
 slots are a prefix of the source-ordered list, so chunk ``c`` is live
 exactly when ``c * blend_chunk < min(total, blend_capacity)``. The port
-keeps them on the records' device (``live_slots``, fixed-shape torch ops
-only): the live count, the source-ordered ids, each chunk's screen box and
-the slot table, one row per slot with everything a fragment of it needs
-(its snapped vertices, depths, 1/w and attributes, its face color, the
-sampler's six LOD terms, its material and its pixel box). On a card
-``composite_transparent`` hands that table to the hand-written kernel
-(``kernels.blend_composite``, ``csrc/blend.cu``), which reads the count on
-the device and walks the live slots in source order at each pixel of a
-fixed grid, so the stage is captured with the rest of the frame. On the
-CPU it runs the plain version, ``blend_composite_plain``: the count and
+keeps them on the records' device (``live_slots``): the meta vector (the
+live count, the transparent total, the overflow and the union of the live
+boxes cut to the frame), the source-ordered ids, each chunk's screen box
+and the slot table, one row per slot with everything a fragment of it
+needs (its snapped vertices, depths, 1/w and attributes, its face color,
+the sampler's six LOD terms, its material and its pixel box). On a card
+one hand-written kernel builds all of it (``kernels.blend_slots``) and a
+second composites the live slots in place (``kernels.blend_composite``,
+both ``csrc/blend.cu``) on the tiles of the union box only, reading the
+count and the box on the device, so the stage is captured with the rest of
+the frame. On the CPU the plain versions run: ``live_slots_plain``
+(fixed-shape torch ops), then ``blend_composite_plain``: the count and
 boxes read to the host once (``live_records``), then each live chunk on
 its live slots only and only over the pixels its records can cover: the
 box of their pixel centres, cut to the frame and to the band's rows,
 widened to whole groups of 32 columns. A fragment's math reads nothing of
 its neighbours (the sampler's LOD is analytic per record, the shadow test
 samples the map per pixel), so both equal the whole-frame composite
-(``composite_whole_frame``) bit for bit. Transparent fragments get the
-deferred pass's shading model: interpolation, trilinear texturing with the
-analytic LOD, Phong and the shadow test.
+(``composite_whole_frame``) bit for bit. The composite consumes its color:
+both versions write it in place. Transparent fragments get the deferred
+pass's shading model: interpolation, trilinear texturing with the analytic
+LOD, Phong and the shadow test.
 """
 
 from __future__ import annotations
@@ -207,19 +210,42 @@ def unpack_slots(table: torch.Tensor, attr_width: int) -> Slots:
 @dataclasses.dataclass
 class SlotTable:
     """The composite's live transparent slots on the records' device
-    (``live_slots``): count () i32, min(total, blend_capacity); ids
-    (nchunks * chunk,) int64 record ids in source order (slots from count
-    on are dead); boxes (nchunks, 4) i32, each chunk's (y0, y1, x0, x1)
-    over its live records (empty where y1 <= y0 or x1 <= x0, as for a dead
+    (``live_slots``): meta (8,) i32, kernels.META's fields (count, total,
+    overflow and union, below); ids (nchunks * chunk,) int64 record ids in
+    source order (slots from count on are dead, and the kernel leaves them
+    unwritten); boxes (nchunks, 4) i32, each chunk's (y0, y1, x0, x1) over
+    its live records (empty where y1 <= y0 or x1 <= x0, as for a dead
     chunk), not cut to the frame; table (blend_capacity, width) f32, the
-    slot table (pack_slots). host: the plain version's host read of it
-    (``live_records``), made once for all the bands it composites."""
+    slot table (pack_slots; rows from count on dead, and unwritten by the
+    kernel). host: the plain version's host read of it (``live_records``),
+    made once for all the bands it composites."""
 
-    count: torch.Tensor
+    meta: torch.Tensor
     ids: torch.Tensor
     boxes: torch.Tensor
     table: torch.Tensor
     host: Optional["LiveSlots"] = None
+
+    @property
+    def count(self) -> torch.Tensor:
+        """() i32: the live slots, min(total, blend_capacity)."""
+        return self.meta[0]
+
+    @property
+    def total(self) -> torch.Tensor:
+        """() i32: the transparent records."""
+        return self.meta[1]
+
+    @property
+    def overflow(self) -> torch.Tensor:
+        """() i32: the transparent records past blend_capacity."""
+        return self.meta[2]
+
+    @property
+    def union(self) -> torch.Tensor:
+        """(4,) i32: (y0, y1, x0, x1), the union of the live chunks'
+        boxes cut to the frame (empty where y1 <= y0 or x1 <= x0)."""
+        return self.meta[4:8]
 
 
 class LiveSlots(NamedTuple):
@@ -235,11 +261,36 @@ class LiveSlots(NamedTuple):
 
 
 def live_slots(tri, scene: Scene, config: RenderConfig) -> Optional[SlotTable]:
-    """The live transparent slots on the records' device, from fixed-shape
-    torch ops only (no read to the host: a captured frame runs it); None
-    when the scene has no alpha column (nothing composites)."""
+    """The live transparent slots on the records' device: the slot-table
+    kernel (kernels.blend_slots) on CUDA records, its plain version
+    (live_slots_plain) on CPU records. Reads nothing to the host (a
+    captured frame runs it); None when the scene has no alpha column
+    (nothing composites)."""
     if material_alpha(scene) is None:
         return None
+    if tri.xs.device.type == "cpu":
+        return live_slots_plain(tri, scene, config)
+    return SlotTable(*slots_call(tri, scene, config)())
+
+
+def slots_call(tri, scene: Scene, config: RenderConfig):
+    """kernels.blend_slots bound to the frame's records and the scene's
+    materials and textures, to call."""
+    pyr = scene.textures
+    uv_slot = _uv_slot(scene, config)
+    ragged = pyr is not None and hasattr(pyr, "base_size_per_tex")
+    return functools.partial(
+        kernels.blend_slots, tri, scene.materials, pyr.base_size_per_tex if ragged else None,
+        tex_base=0.0 if ragged or pyr is None else float(pyr.base_size),
+        uv_slot=-1 if uv_slot is None else uv_slot, subpixel=config.subpixel,
+        cap=config.blend_capacity, chunk=min(config.blend_chunk, config.blend_capacity),
+        height=config.height, width=config.width)
+
+
+def live_slots_plain(tri, scene: Scene, config: RenderConfig) -> SlotTable:
+    """The slot-table kernel's plain version: the live slots from
+    fixed-shape torch ops only (the stable sort of the source ids, the
+    chunks' extents, record_slots and pack_slots)."""
     cap = config.blend_capacity
     ch = min(config.blend_chunk, cap)
     nchunks = -(-cap // ch)
@@ -256,8 +307,14 @@ def live_slots(tri, scene: Scene, config: RenderConfig) -> Optional[SlotTable]:
 
     y0, y1 = extent(tri.ys)
     x0, x1 = extent(tri.xs)
+    boxes = torch.stack([y0, y1, x0, x1], 1).to(I32)
+    H, W = config.height, config.width
+    union = [boxes[:, 0].amin().clamp(0, H), boxes[:, 1].amax().clamp(0, H),
+             boxes[:, 2].amin().clamp(0, W), boxes[:, 3].amax().clamp(0, W)]
+    meta = torch.stack([count, total, torch.clamp_min(total - cap, 0), torch.zeros_like(total),
+                        *union]).to(I32)
     table = pack_slots(record_slots(tri, ids[:cap], scene, config))
-    return SlotTable(count, ids, torch.stack([y0, y1, x0, x1], 1).to(I32), table)
+    return SlotTable(meta, ids, boxes, table)
 
 
 def live_records(tri, scene: Scene, config: RenderConfig,
@@ -318,21 +375,22 @@ def composite_transparent(color, depth, tri, scene: Scene, config: RenderConfig,
     color (H, W, 3) f32 linear, background included; depth (H, W) f32
     opaque depth (1.0 = background); both hold rows [y_offset, y_offset +
     H) of the full frame (a screen band walks the whole transparent list
-    against its own rows). live: these records' live_slots when the caller
+    against its own rows). color is consumed: the composite writes it in
+    place and returns it, so a caller that needs the color from before the
+    blend keeps a copy. live: these records' live_slots when the caller
     has made them already (once per device for all its bands); None makes
-    them here. Returns (color,
-    overflow () i32): color a new tensor, and the transparent records past
-    blend_capacity, which strict readback raises on."""
-    total = transparent_mask(tri, scene).sum(dtype=I32)
-    overflow = torch.clamp_min(total - config.blend_capacity, 0).to(I32)
+    them here. Returns (color, overflow () i32: the transparent records
+    past blend_capacity, which strict readback raises on)."""
     if material_alpha(scene) is None:
-        return color, overflow
-    if depth.device.type == "cpu":
-        return blend_composite_plain(color, depth, tri, scene, config, eye, shadow_depth,
-                                     light_viewproj, y_offset, live), overflow
+        return color, convert.constant(0, depth.device, I32)
     slots = live if live is not None else live_slots(tri, scene, config)
-    return _launch(color, depth, slots, scene, config, eye, shadow_depth, light_viewproj,
-                   y_offset), overflow
+    if depth.device.type == "cpu":
+        color = blend_composite_plain(color, depth, tri, scene, config, eye, shadow_depth,
+                                      light_viewproj, y_offset, slots)
+    else:
+        color = _launch(color, depth, slots, scene, config, eye, shadow_depth, light_viewproj,
+                        y_offset)
+    return color, slots.overflow
 
 
 def _launch(color, depth, slots: SlotTable, scene: Scene, config: RenderConfig, eye,
@@ -343,8 +401,9 @@ def _launch(color, depth, slots: SlotTable, scene: Scene, config: RenderConfig, 
 
 def kernel_call(color, depth, slots: SlotTable, scene: Scene, config: RenderConfig, eye,
                 shadow_depth=None, light_viewproj=None, y_offset: int = 0):
-    """kernels.blend_composite bound to the frame's tensors, to call: the
-    slot table, the frame's constants (eye, lights, the light's
+    """kernels.blend_composite bound to the frame's tensors, to call (each
+    call composites color in place again): the slot table and its meta
+    vector, the frame's constants (eye, lights, the light's
     view-projection) in one vector, the shadow map and the texture
     tables."""
     dev = depth.device
@@ -358,7 +417,7 @@ def kernel_call(color, depth, slots: SlotTable, scene: Scene, config: RenderConf
     quads, level_size, level_base = _texture_tables(scene, config, dev)
     return functools.partial(
         kernels.blend_composite,
-        color, depth, slots.table, slots.count, torch.cat(consts).to(F32).contiguous(),
+        color, depth, slots.table, slots.meta, torch.cat(consts).to(F32).contiguous(),
         shadow_depth.contiguous() if shadow else None, quads, level_size, level_base,
         mode=config.mode, attr_width=config.attr_width, y_offset=y_offset,
         subpixel=config.subpixel, n_dir=lights.dir_dirs.shape[0],
@@ -393,19 +452,18 @@ def blend_composite_plain(color, depth, tri, scene: Scene, config: RenderConfig,
                           shadow_depth=None, light_viewproj=None, y_offset: int = 0,
                           live: Optional[SlotTable] = None):
     """The kernel's plain version: the composite of the live slots of the
-    slot table over color (rows from y_offset), in source order. live:
-    these records' live_slots, read to the host here once (live_records;
-    the bands of a device share the read), or None (made and read here).
-    Each of the ceil(count / blend_chunk) live chunks runs on its live
-    slots, from the table, over its box cut to these rows; a chunk whose
-    box misses them runs nothing. Returns the new color."""
+    slot table over color (rows from y_offset), in source order, in place.
+    live: these records' live_slots, read to the host here once
+    (live_records; the bands of a device share the read), or None (made
+    and read here). Each of the ceil(count / blend_chunk) live chunks runs
+    on its live slots, from the table, over its box cut to these rows; a
+    chunk whose box misses them runs nothing. Returns color."""
     live = live.host if live is not None and live.host is not None else live_records(
         tri, scene, config, live)
     H, W = depth.shape
     dev = depth.device
     ch = min(config.blend_chunk, config.blend_capacity)
     eye = convert.tensor(eye, dev, F32)
-    out = None
     for c, (y0, y1, x0, x1) in enumerate(live.boxes):
         y0, y1 = max(y0, y_offset), min(y1, y_offset + H)
         x0, x1 = _columns(x0, x1, W)
@@ -416,11 +474,10 @@ def blend_composite_plain(color, depth, tri, scene: Scene, config: RenderConfig,
         px = fp.pixel_center_fixed(torch.arange(x0, x1, device=dev), config.subpixel)
         py = fp.pixel_center_fixed(torch.arange(y0, y1, device=dev), config.subpixel)
         rows = slice(y0 - y_offset, y1 - y_offset)
-        if out is None:
-            out = color.clone()
-        out[rows, x0:x1] = _composite_slots(out[rows, x0:x1], depth[rows, x0:x1], rec, scene,
-                                            config, eye, px, py, shadow_depth, light_viewproj)
-    return color if out is None else out
+        color[rows, x0:x1] = _composite_slots(color[rows, x0:x1], depth[rows, x0:x1], rec,
+                                              scene, config, eye, px, py, shadow_depth,
+                                              light_viewproj)
+    return color
 
 
 def _composite_slots(box, depth, rec: Slots, scene: Scene, config: RenderConfig, eye, px, py,
